@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 1. Prints the card's name and power limit.
-2. Builds every CUDA kernel of the port from ``mxnet_tpu_torch/csrc/``.
+2. Builds every CUDA kernel of the port from ``mxnet_tpu_torch/csrc/``
+   (one ``nvcc`` per source, all started together).
 3. Kernel phase: flash attention (K3) at B in {1, 4}, H=8, L=2048, D=128,
    f32, causal and not, held against its plain PyTorch version on the card
    (TF32 off for both; ``atol=rtol=1e-4`` on out and lse, the sums run in
@@ -12,7 +13,16 @@
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
    and the least time the card could take (the larger of the operations
    over the 67 TFLOP/s f32 peak and the bytes over 3.35 TB/s).
-4. Serving phase: ``build_lm`` at vocab 32000, embed 1024, 8 heads of 128,
+4. BatchNorm kernel phase: at every distinct BatchNorm input of the
+   ResNet-50 b128 training step (shape, fix_gamma, fused ReLU), K1 and K2
+   held against their plain versions (max error within ``1e-4`` of each
+   output's largest magnitude; K2 takes K1's saved statistics in both, so
+   the ReLU masks agree) and timed beside the plain versions,
+   ``F.batch_norm(training=True)`` (K1, without the ReLU) and
+   ``aten.native_batch_norm_backward`` (K2) as yardsticks the port never
+   calls, and the bound (bytes over 3.35 TB/s: K1 reads x and writes y,
+   K2 reads x and g and writes dx).
+5. Serving phase: ``build_lm`` at vocab 32000, embed 1024, 8 heads of 128,
    seq 2048, FFN 2048, f32, buckets (1, 4), weights drawn from ``--seed``,
    published with ``save_model`` and loaded with ``ModelRegistry().load_dir``
    on the default context (the card).  Six concurrent requests (one of 1
@@ -21,12 +31,35 @@
    finiteness and rows that sum to 1, and the 1-row answer is held against
    the same model computed in plain PyTorch with the plain attention.  The
    K3 launch count must equal the dispatches (warm-up included).
-5. Prints the kernel table as one JSON line, then the result line.
+6. Training phase: ``Module(resnet50).fit`` on the default context (the
+   card) at full width (224x224x3, 1000 classes, f32, batch 128) over
+   6 batches of synthetic data from ``--seed``: SGD with
+   momentum 0.9, wd 1e-4, lr 0.1 with a ``MultiFactorScheduler``, Xavier
+   (gaussian, in, 2), accuracy + top-5 metrics, a ``Speedometer``.  K1 and
+   K2 must each launch 51 times per step.  Prints the step time (CUDA
+   events between batch ends, the first step apart), images/s, the K1/K2
+   share of the step, a ``torch.profiler`` breakdown of one more step, the
+   host-to-device batch copy and ``torch.cuda.max_memory_allocated``.
+   Then one more step in which every K1 and K2 call is held against
+   references on its own inputs (y, mean, var, dx against the plain
+   version, within ``1e-5`` of the output's largest magnitude; dgamma and
+   dbeta against f64 sums, within ``1e-5`` of the sum of their terms'
+   magnitudes, as they cancel).
+7. Step parity: the same ResNet-50 weights and batch (b4), one fit step on
+   ``gpu(0)`` and on ``cpu()`` (the plain versions).  The first step of a
+   random ResNet-50 is ill-conditioned (a 1e-7 input perturbation moves
+   the updates by 1-2% on the CPU alone), so each parameter's update on
+   the card must stay within 3x the largest distance of the CPU's updates
+   on three perturbed inputs, measured in the run; the moving statistics
+   within ``rtol=1e-4, atol=1e-5``.  The card step with the plain
+   BatchNorm in place of K1/K2 is printed beside it as a second witness.
+8. Prints the kernel table as one JSON line, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -46,6 +79,11 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 VOCAB, EMBED, HEADS, SEQ = 32000, 1024, 8, 2048
+TRAIN_BATCH, TRAIN_STEPS, PARITY_BATCH = 128, 6, 4
+#: the checked step's bound on each K1/K2 output error (see bn_checking)
+BN_STEP_TOL = 1e-5
+#: CPU steps on perturbed inputs that set the parity floor
+PARITY_PERTURBATIONS = 3
 BUCKETS = (1, 4)
 REQUEST_ROWS = (1, 4, 4, 4, 4, 4)
 
@@ -248,6 +286,502 @@ def serving_phase(mx, att, dev, seed):
     return launches
 
 
+def _scaled_err(got, want):
+    """(max abs error, that error over max(1, the largest |want|))."""
+    err = (got - want).abs().max().item()
+    return err, err / max(1.0, want.abs().max().item())
+
+
+def _rel_err(got, want):
+    """max |got - want| over the largest |want| (over 1 if want is 0)."""
+    top = want.abs().max().item()
+    return (got - want).abs().max().item() / (top if top > 0 else 1.0)
+
+
+@contextlib.contextmanager
+def bn_rerouted(bnk, reroute):
+    """Within the block, where the BatchNorm autograd function would call
+    kernel K1 or K2 (``kernel``) it calls ``reroute(kernel, plain)``."""
+    route = bnk._route
+
+    def rerouted(x, kernel, plain):
+        fn = route(x, kernel, plain)
+        return reroute(kernel, plain) if fn is kernel else fn
+
+    bnk._route = rerouted
+    try:
+        yield
+    finally:
+        bnk._route = route
+
+
+def _bwd_sums_f64(bnk, x, g, mean, var, gamma, beta, eps, fix_gamma, relu):
+    """K2's two sums from its own inputs in f64, each with the sum of the
+    magnitudes of its terms: ((dgamma, scale), (dbeta, scale)).  The ReLU
+    mask is taken in f32 with the plain version's expression, as both
+    kernels take it.  A sum of terms of both signs can be far smaller than
+    its terms (dgamma of the stem's BatchNorm cancels to ~1% of them at
+    initialization), so its rounding error is measured on that scale."""
+    red = (0,) + tuple(range(2, x.ndim))
+    if relu:
+        _rstd, scale, shift = bnk._scale_shift(mean, var, gamma, beta, eps,
+                                               fix_gamma)
+        pre = x * bnk._view(scale, x.ndim) + bnk._view(shift, x.ndim)
+        g = torch.where(pre > 0, g, torch.zeros_like(g))
+    g = g.double()
+    rstd = 1.0 / torch.sqrt(var.double() + eps)
+    t = g * ((x.double() - bnk._view(mean.double(), x.ndim))
+             * bnk._view(rstd, x.ndim))
+    return ((t.sum(red), t.abs().sum(red)), (g.sum(red), g.abs().sum(red)))
+
+
+def _sum_err(got, ref):
+    """Largest error of a per-channel sum over its channel's scale."""
+    total, scale = ref
+    return ((got.double() - total).abs() / scale.clamp_min(1e-300)).max() \
+        .item()
+
+
+def bn_checking(bnk, errs):
+    """A ``reroute`` for :func:`bn_rerouted`: the kernel launches (and
+    counts) as usual and is then held against a computation on its own
+    inputs; ``errs[kernel name]`` collects (x shape, {output: error}).
+    y, mean, var and dx: the error over the largest magnitude of the plain
+    version's output.  dgamma and dbeta: the error against the f64 sums
+    over the sums of magnitudes (:func:`_bwd_sums_f64`), for the kernel
+    and, as ``plain_*``, for the plain version."""
+    def reroute(kernel, plain):
+        def checked(*args):
+            out = kernel(*args)
+            want = plain(*args)
+            if kernel is bnk.bn_fwd_cuda:
+                err = dict(zip(("y", "mean", "var"), (
+                    _rel_err(a, b) for a, b in zip(out, want))))
+            else:
+                dg, db = _bwd_sums_f64(bnk, *args)
+                err = dict(dx=_rel_err(out[0], want[0]),
+                           dgamma=_sum_err(out[1], dg),
+                           dbeta=_sum_err(out[2], db),
+                           plain_dgamma=_sum_err(want[1], dg),
+                           plain_dbeta=_sum_err(want[2], db))
+            errs.setdefault(kernel.__name__, []).append(
+                (tuple(args[0].shape), err))
+            return out
+        return checked
+    return reroute
+
+
+def checked_step(mod, batch, bnk):
+    """One more training step in which every K1 and K2 call is held, on
+    the main path's own tensors, against :func:`bn_checking`'s references;
+    each error of a kernel's output must stay within ``BN_STEP_TOL``."""
+    errs = {}
+    with bn_rerouted(bnk, bn_checking(bnk, errs)):
+        mod.forward_backward(batch)
+        torch.cuda.synchronize()
+    for kernel in ("bn_fwd_cuda", "bn_bwd_cuda"):
+        calls = errs.get(kernel, [])
+        worst = {}
+        for shape, err in calls:
+            for out, e in err.items():
+                if e >= worst.get(out, (-1.0,))[0]:
+                    worst[out] = (e, shape)
+        print("training checked step: %d %s calls on the step's own "
+              "tensors, worst error by output %s" % (
+                  len(calls), kernel, ", ".join(
+                      "%s %.3g at %s" % (k, v[0], v[1])
+                      for k, v in worst.items())), flush=True)
+        if len(calls) != 51:
+            raise RuntimeError("%s ran %d times in the checked step, "
+                               "expected 51" % (kernel, len(calls)))
+        bad = {k: v for k, v in worst.items()
+               if not k.startswith("plain_") and not v[0] <= BN_STEP_TOL}
+        if bad:
+            raise RuntimeError("%s disagrees on the step's own tensors "
+                               "beyond %g: %s" % (kernel, BN_STEP_TOL, bad))
+
+
+def resnet_bn_configs(mx, batch):
+    """{(input shape, fix_gamma, relu fused): count} over the BatchNorm
+    nodes of the ResNet-50 training step at ``batch``, read from the graph
+    the way the executor's peephole reads it."""
+    from mxnet_tpu_torch.executor import _bn_relu_peephole
+
+    net = mx.models.get_symbol("resnet", num_classes=1000, num_layers=50,
+                               image_shape="3,224,224")
+    var_shape, _, entry = net._infer_shapes_full(
+        {"data": (batch, 3, 224, 224)})
+    nodes = net._nodes()
+    fused = set(_bn_relu_peephole(net, nodes)[0])
+    configs = {}
+    for node in nodes:
+        if node.is_variable or node.op.name != "BatchNorm":
+            continue
+        child, ci = node.inputs[0]
+        shape = tuple(var_shape[child.name]) if child.is_variable \
+            else tuple(entry[(id(child), ci)].shape)
+        key = (shape, bool(node.attrs["fix_gamma"]), id(node) in fused)
+        configs[key] = configs.get(key, 0) + 1
+    return configs
+
+
+def bn_kernel_phase(bnk, dev, seed, configs):
+    """K1 and K2 against their plain versions at every BatchNorm input of
+    the step; returns one row per config and the step totals."""
+    rows = []
+    eps = 2e-5
+    for (shape, fix_gamma, relu), count in sorted(
+            configs.items(), key=lambda kv: -math.prod(kv[0][0])):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        c = shape[1]
+        if shape[1] == 3:  # bn_data sees raw pixels: mean >> std
+            x = torch.rand(shape, generator=gen, device=dev) * 255
+        else:
+            x = torch.randn(shape, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev)
+        gamma = torch.rand(c, generator=gen, device=dev) + 0.5
+        beta = torch.randn(c, generator=gen, device=dev)
+        y, mean, var = bnk.bn_fwd_cuda(x, gamma, beta, eps, fix_gamma, relu)
+        torch.cuda.synchronize()
+        plain = bnk.bn_fwd_plain(x, gamma, beta, eps, fix_gamma, relu)
+        fwd_errs = [_scaled_err(a, b) for a, b in zip((y, mean, var), plain)]
+        dx, dg, db = bnk.bn_bwd_cuda(x, g, mean, var, gamma, beta, eps,
+                                     fix_gamma, relu)
+        torch.cuda.synchronize()
+        plain = bnk.bn_bwd_plain(x, g, mean, var, gamma, beta, eps,
+                                 fix_gamma, relu)
+        bwd_errs = [_scaled_err(a, b) for a, b in zip((dx, dg, db), plain)]
+        for name, errs in (("K1", fwd_errs), ("K2", bwd_errs)):
+            if max(e[1] for e in errs) > 1e-4:
+                raise RuntimeError("%s disagrees with its plain version at "
+                                   "%s: %s" % (name, shape, errs))
+        n = x.numel()
+        iters = 10 if n > 20e6 else 30
+        fwd_ms = _time_ms(lambda: bnk.bn_fwd_cuda(
+            x, gamma, beta, eps, fix_gamma, relu), iters)
+        fwd_plain = _time_ms(lambda: bnk.bn_fwd_plain(
+            x, gamma, beta, eps, fix_gamma, relu), 3, warmup=1)
+        fwd_lib = _time_ms(lambda: F.batch_norm(
+            x, None, None, gamma, beta, training=True, eps=eps), iters)
+        bwd_ms = _time_ms(lambda: bnk.bn_bwd_cuda(
+            x, g, mean, var, gamma, beta, eps, fix_gamma, relu), iters)
+        bwd_plain = _time_ms(lambda: bnk.bn_bwd_plain(
+            x, g, mean, var, gamma, beta, eps, fix_gamma, relu), 3, warmup=1)
+        invstd = 1.0 / torch.sqrt(var + eps)
+        bwd_lib = _time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+            g, x, gamma, None, None, mean, invstd, True, eps,
+            [True, True, True]), iters)
+        # bytes: K1 reads x once and writes y once, K2 reads x and g once
+        # and writes dx once (the (C,) vectors are noise); operations:
+        # about 8 per element in each, far below the 67 TFLOP/s f32 peak
+        fwd_bound = max(8.0 * n / PEAK_BYTES, 8.0 * n / PEAK_F32_FLOPS) * 1e3
+        bwd_bound = max(12.0 * n / PEAK_BYTES, 12.0 * n / PEAK_F32_FLOPS) \
+            * 1e3
+        row = dict(shape=shape, fix_gamma=fix_gamma, relu=relu, count=count,
+                   fwd_err=max(e[0] for e in fwd_errs),
+                   bwd_err=max(e[0] for e in bwd_errs),
+                   fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain,
+                   fwd_library_ms=fwd_lib, fwd_bound_ms=fwd_bound,
+                   bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
+                   bwd_library_ms=bwd_lib, bwd_bound_ms=bwd_bound)
+        rows.append(row)
+        print("kernel batch_norm %s fix_gamma=%s relu=%s (x%d per step): "
+              "K1 %.4f ms (bound %.4f, %.0f%% of 3.35 TB/s), plain %.4f, "
+              "F.batch_norm %.4f; K2 %.4f ms (bound %.4f, %.0f%%), plain "
+              "%.4f, native_batch_norm_backward %.4f; max_abs_err K1 %.3g "
+              "K2 %.3g (scaled %.2g / %.2g)"
+              % (shape, fix_gamma, relu, count, fwd_ms, fwd_bound,
+                 100 * fwd_bound / fwd_ms, fwd_plain, fwd_lib, bwd_ms,
+                 bwd_bound, 100 * bwd_bound / bwd_ms, bwd_plain, bwd_lib,
+                 row["fwd_err"], row["bwd_err"],
+                 max(e[1] for e in fwd_errs), max(e[1] for e in bwd_errs)),
+              flush=True)
+        del x, g, y, dx, plain
+    torch.cuda.empty_cache()
+
+    def step_total(key):
+        return sum(r[key] * r["count"] for r in rows)
+
+    totals = {}
+    for kind in ("fwd", "bwd"):
+        totals[kind] = dict(
+            max_abs_err=max(r[kind + "_err"] for r in rows),
+            ms=step_total(kind + "_ms"),
+            plain_ms=step_total(kind + "_plain_ms"),
+            bound_ms=step_total(kind + "_bound_ms"), bound_by="bytes",
+            library_ms=step_total(kind + "_library_ms"))
+        print("kernel batch_norm %s, summed over the %d BatchNorms of one "
+              "b%d step: kernel %.3f ms, bound %.3f ms, plain %.3f ms, "
+              "library %.3f ms" % ("K1" if kind == "fwd" else "K2",
+                                   sum(r["count"] for r in rows),
+                                   TRAIN_BATCH, totals[kind]["ms"],
+                                   totals[kind]["bound_ms"],
+                                   totals[kind]["plain_ms"],
+                                   totals[kind]["library_ms"]), flush=True)
+    return rows, totals
+
+
+def _resnet50_module(mx, ctx=None):
+    net = mx.models.get_symbol("resnet", num_classes=1000, num_layers=50,
+                               image_shape="3,224,224")
+    return mx.mod.Module(net) if ctx is None \
+        else mx.mod.Module(net, context=ctx)
+
+
+def training_phase(mx, bnk, seed, steps, bn_totals):
+    """Module.fit on full-width ResNet-50 at b128 on the card."""
+    rng = np.random.default_rng(seed)
+    n = steps * TRAIN_BATCH
+    x = rng.standard_normal((n, 3, 224, 224), dtype=np.float32)
+    y = rng.integers(0, 1000, n).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)
+    mod = _resnet50_module(mx)
+    metric = mx.metric.CompositeEvalMetric(
+        [mx.metric.Accuracy(), mx.metric.TopKAccuracy(top_k=5)])
+    sched = mx.lr_scheduler.MultiFactorScheduler(step=[steps // 2],
+                                                 factor=0.1)
+    speed = mx.callback.Speedometer(TRAIN_BATCH, frequent=1)
+    events = []
+
+    def mark(_param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    # -- the main path: counts from 0, fit over `steps` batches --
+    bnk.bn_fwd_cuda.launches = 0
+    bnk.bn_bwd_cuda.launches = 0
+    start.record()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric=metric, kvstore="local",
+            batch_end_callback=[speed, mark], optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                              "wd": 1e-4, "lr_scheduler": sched},
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = (bnk.bn_fwd_cuda.launches, bnk.bn_bwd_cuda.launches)
+    # -- end of the main path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [start.elapsed_time(events[0])] + [
+        a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    steady = float(np.median(step_ms[1:]))
+    names_vals = dict(metric.get_name_value())
+    print("training ResNet-50 b%d f32 on the card: fit of %d steps %.2f s "
+          "(init and bind included); step ms (CUDA events between batch "
+          "ends) %s; median after the first %.2f ms = %.1f images/s; "
+          "Speedometer %s images/s; metrics %s; lr after %d updates %.4g; "
+          "peak memory allocated %.2f GB"
+          % (TRAIN_BATCH, steps, fit_s, ["%.2f" % t for t in step_ms],
+             steady, TRAIN_BATCH / steady * 1e3,
+             ["%.1f" % v for v in speed.speeds], names_vals,
+             mod._optimizer.num_update, mod._optimizer._get_lr(0), peak_gb),
+          flush=True)
+    if launches != (51 * steps, 51 * steps):
+        raise RuntimeError("K1/K2 launched %s times in %d steps, expected "
+                           "51 each per step" % (launches, steps))
+    print("training K1 launches %d, K2 launches %d: %d and %d per step"
+          % (launches + (launches[0] // steps, launches[1] // steps)),
+          flush=True)
+    share = (bn_totals["fwd"]["ms"] + bn_totals["bwd"]["ms"]) / steady
+    print("training K1+K2 share of the step from the kernel-phase times: "
+          "%.3f ms of %.2f ms = %.1f%%" % (
+              bn_totals["fwd"]["ms"] + bn_totals["bwd"]["ms"], steady,
+              100 * share), flush=True)
+    arg, aux = mod.get_params()
+    bad = [k for k, v in list(arg.items()) + list(aux.items())
+           if not torch.isfinite(v._t).all()]
+    if bad or not all(0 <= v <= 1 for v in names_vals.values()):
+        raise RuntimeError("training produced non-finite params %s or "
+                           "metrics %s" % (bad[:5], names_vals))
+    # host-to-device copy of one b128 batch, as Module._load_io makes it
+    it.reset()
+    batch = next(it)
+    src, dst = batch.data[0], mod._exec.arg_dict["data"]
+    copy_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dst[:] = src
+        torch.cuda.synchronize()
+        copy_s.append(time.perf_counter() - t)
+    pinned = src._t.pin_memory()
+    pin_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dst._t.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        pin_s.append(time.perf_counter() - t)
+    nbytes = src._t.numel() * 4
+    print("training host-to-device batch copy (%.1f MB): %.2f ms from "
+          "pageable memory (%.2f GB/s, median of 5; the port's path), "
+          "%.2f ms from pinned memory (%.2f GB/s, not used by the port)"
+          % (nbytes / 1e6, np.median(copy_s) * 1e3,
+             nbytes / np.median(copy_s) / 1e9, np.median(pin_s) * 1e3,
+             nbytes / np.median(pin_s) / 1e9), flush=True)
+    profile_step(mod, batch, steady)
+    checked_step(mod, batch, bnk)
+    del mod, it, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(mod, batch, steady_ms):
+    """One more step under torch.profiler: device time by kernel.  A step
+    that fails fails the phase; a profiler that records no device time is
+    reported as not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if dev_us(e) > 0
+               and e.device_type.name == "CUDA"]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        print("profile: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return
+
+    def is_bn(k):
+        return "bn_fwd_" in k or "bn_bwd_" in k
+
+    bn = sum(dev_us(e) for e in kernels if is_bn(e.key)) / 1e3
+    print("profile of one step (wall %.2f ms under the profiler, "
+          "steady step %.2f ms): device busy %.2f ms (idle share %.1f%% "
+          "of the profiled wall time), K1+K2 kernels %.2f ms (%.1f%% of "
+          "device time)" % (wall, steady_ms, total,
+                            100 * max(0.0, 1 - total / wall), bn,
+                            100 * bn / total), flush=True)
+    groups = {}
+    rules = (("bn_* (K1/K2)", is_bn),
+             ("convolution (cuDNN)", lambda k: any(w in k for w in (
+                 "conv", "cudnn", "implicit_gemm", "wgrad", "dgrad",
+                 "fprop", "winograd", "fft", "gemm_cf32"))),
+             ("memcpy", lambda k: "memcpy" in k),
+             ("optimizer (foreach)", lambda k: "multi_tensor" in k
+              or "foreach" in k),
+             ("pooling", lambda k: "pool" in k),
+             ("gemm", lambda k: "gemm" in k),
+             ("add", lambda k: "add" in k))
+    for e in kernels:
+        k = e.key.lower()
+        name = next((n for n, test in rules if test(k)), "other")
+        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
+    print("profile device time by group: %s" % ", ".join(
+        "%s %.2f ms (%.1f%%)" % (k, v, 100 * v / total)
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    for e in top:
+        print("profile  %8.3f ms  x%-4d %s" % (dev_us(e) / 1e3, e.count,
+                                               e.key[:110]), flush=True)
+
+
+def resnet50_step_updates(mx, ctx, x, y, seed):
+    """One fit step of ResNet-50 from seeded Xavier weights on ``ctx``:
+    ({name: update}, {aux name: value}) as numpy."""
+    it = mx.io.NDArrayIter(x, y, batch_size=x.shape[0])
+    mod = _resnet50_module(mx, ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mx.init.seed(seed)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    before = mx.convert.module_params_to_numpy(mod)[0]
+    mod.fit(it, num_epoch=1, optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    arg, aux = mx.convert.module_params_to_numpy(mod)
+    return {k: arg[k] - before[k] for k in arg}, aux
+
+
+def parity_phase(mx, bnk, seed):
+    """One fit step of the same ResNet-50 on the card and on the CPU.
+
+    The first step of a randomly initialized ResNet-50 is ill-conditioned:
+    on the CPU alone, an input perturbed by 1e-7 relative moves the
+    updates by 1-2% (BatchNorm networks at initialization amplify
+    perturbations with depth, and some per-channel sums of the backward
+    cancel to ~1% of their terms).  So the card's updates are held to that
+    floor, measured in this run, tensor by tensor: for every parameter,
+    the distance of the card's update from the CPU's must stay within 3x
+    the largest distance of the CPU's updates on ``PARITY_PERTURBATIONS``
+    perturbed inputs.  A second witness, printed and not bounded: the card
+    step with the plain versions in place of K1/K2 (the same convolutions),
+    against the card step through the kernels.  The moving statistics, a
+    forward quantity, are held to ``rtol=1e-4, atol=1e-5``."""
+    rng = np.random.default_rng(seed + 1)
+    x = rng.uniform(0, 255, (PARITY_BATCH, 3, 224, 224)).astype(np.float32)
+    y = rng.integers(0, 1000, PARITY_BATCH).astype(np.float32)
+    xps = [(x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(np.float32)
+           for _ in range(PARITY_PERTURBATIONS)]
+    t = time.perf_counter()
+    gu, gaux = resnet50_step_updates(mx, mx.gpu(0), x, y, seed)
+    gs = time.perf_counter() - t
+    with bn_rerouted(bnk, lambda kernel, plain: plain):
+        qu, _ = resnet50_step_updates(mx, mx.gpu(0), x, y, seed)
+    t = time.perf_counter()
+    cu, caux = resnet50_step_updates(mx, mx.cpu(), x, y, seed)
+    cs = time.perf_counter() - t
+    pus = [resnet50_step_updates(mx, mx.cpu(), xp, y, seed)[0] for xp in xps]
+
+    names = sorted(cu)
+    norm = math.sqrt(sum(float(np.sum(cu[k] ** 2)) for k in names))
+
+    def dists(a, b):
+        return np.array([float(np.linalg.norm(a[k] - b[k])) for k in names])
+
+    floor = np.max([dists(p, cu) for p in pus], axis=0)
+    card, plain_bn = dists(gu, cu), dists(gu, qu)
+    ratio = card / np.maximum(floor, 1e-30)
+    worst = int(np.argmax(ratio))
+    wq = int(np.argmax(plain_bn / np.maximum(floor, 1e-30)))
+    gb = [i for i, k in enumerate(names) if k.endswith(("_gamma", "_beta"))]
+    gbw = gb[int(np.argmax(ratio[gb]))]
+
+    def glob(d):
+        return math.sqrt(float(np.sum(d ** 2))) / norm
+
+    aux_err = max(np.abs(gaux[k] - caux[k]).max() / (1e-5 + 1e-4 * np.abs(
+        caux[k]).max()) for k in caux)
+    print("parity one fit step b%d ResNet-50, card (%.2f s) vs CPU plain "
+          "versions (%.2f s): updates differ by %.3g of their norm, the CPU "
+          "on %d perturbed inputs by %s; per tensor, card distance over the "
+          "largest perturbed distance: median %.3g, worst %.3g at %s "
+          "(limit 3), worst gamma/beta %.3g at %s; witness with the plain "
+          "BatchNorm on the card: it differs from the card's kernel step by "
+          "%.3g of the norm, worst %.3g of the floor at %s (not bounded); "
+          "moving-stat error %.3g of its limit"
+          % (PARITY_BATCH, gs, cs, glob(card), PARITY_PERTURBATIONS,
+             ["%.3g" % glob(dists(p, cu)) for p in pus], np.median(ratio),
+             ratio[worst], names[worst], ratio[gbw], names[gbw],
+             glob(plain_bn), plain_bn[wq] / max(floor[wq], 1e-30),
+             names[wq], aux_err), flush=True)
+    if not ratio[worst] <= 3:
+        raise RuntimeError("card and CPU updates of %s disagree beyond 3x "
+                           "the f32 floor: %.3g vs %.3g" % (
+                               names[worst], card[worst], floor[worst]))
+    for k in caux:
+        np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    return ratio[worst]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -259,6 +793,7 @@ def main():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import bn_kernel as bnk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -281,13 +816,30 @@ def main():
                 print("  %s: %s" % (lib, line.strip()), flush=True)
 
     rows = kernel_phase(att, dev, args.seed)
+    configs = resnet_bn_configs(mx, TRAIN_BATCH)
+    if sum(configs.values()) != 51:
+        raise RuntimeError("ResNet-50 has %d BatchNorms, expected 51"
+                           % sum(configs.values()))
+    _bn_rows, bn_totals = bn_kernel_phase(bnk, dev, args.seed, configs)
     launches = serving_phase(mx, att, dev, args.seed)
+    k1_launches, k2_launches = training_phase(mx, bnk, args.seed,
+                                              TRAIN_STEPS, bn_totals)
+    parity_phase(mx, bnk, args.seed)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
+    source = "mxnet_tpu_torch/csrc/batch_norm.cu"
+    # the BatchNorm rows: times summed over the 51 BatchNorms of one b128
+    # step; launches over the whole training run (51 per step)
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="mxnet_tpu_torch/csrc/flash_attention.cu",
                     replaces="mxnet_tpu/ops/attention.py:116",
-                    launches=launches, **main_row)]
+                    launches=launches, **main_row),
+               dict(name="batch_norm_fwd", route="cuda", source=source,
+                    replaces="mxnet_tpu/ops/bn_pallas.py:87",
+                    launches=k1_launches, **bn_totals["fwd"]),
+               dict(name="batch_norm_bwd", route="cuda", source=source,
+                    replaces="mxnet_tpu/ops/bn_pallas.py:110",
+                    launches=k2_launches, **bn_totals["bwd"])]
     print(json.dumps({"kernels": kernels}))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {

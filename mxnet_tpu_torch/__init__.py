@@ -1,15 +1,19 @@
 """mxnet_tpu_torch — the PyTorch + CUDA port of ``mxnet_tpu`` for NVIDIA
 Hopper.  Import as ``import mxnet_tpu_torch as mx``.
 
-This slice ports the symbolic serving path: ``mx.sym`` graphs, the
-forward-only executor, ``Predictor`` and the serving registry/batcher,
-with flash attention as a hand-written CUDA kernel
-(``csrc/flash_attention.cu``).  The package imports ``torch`` and never
-``jax`` nor ``mxnet_tpu``.  Its entry points run on ``cuda:0`` unless the
-caller passes ``ctx=mx.cpu()``; without a card they raise.
+Ported so far: the symbolic serving path (``mx.sym`` graphs, the
+executor, ``Predictor`` and the serving registry/batcher, with flash
+attention as a hand-written CUDA kernel, ``csrc/flash_attention.cu``) and
+training (``mx.mod.Module.fit`` with ``mx.io.NDArrayIter``, ``mx.init``,
+``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``, ``mx.callback`` and
+``models.resnet``, with train-mode BatchNorm as hand-written CUDA kernels,
+``csrc/batch_norm.cu``).  The package imports ``torch`` and never ``jax``
+nor ``mxnet_tpu``.  Its entry points run on ``cuda:0`` unless the caller
+passes ``ctx=mx.cpu()`` (``context=`` for ``Module``); without a card they
+raise.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -29,10 +33,22 @@ from .executor import Executor
 from . import predict
 from .predict import Predictor
 from . import serving
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import metric
+from . import callback
+from . import io
+from . import model
+from . import module
+from . import module as mod
 from . import convert
 from . import models
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "telemetry", "ops", "nd", "ndarray", "sym", "symbol",
            "Symbol", "Variable", "AttrScope", "Executor",
-           "Predictor", "predict", "serving", "convert", "models"]
+           "Predictor", "predict", "serving", "initializer", "init",
+           "lr_scheduler", "optimizer", "metric", "callback", "io", "model",
+           "module", "mod", "convert", "models"]

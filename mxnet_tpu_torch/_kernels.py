@@ -26,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
 
 #: kernel library name -> source file under csrc/
-SOURCES = {"flash_attention": "flash_attention.cu"}
+SOURCES = {"flash_attention": "flash_attention.cu",
+           "batch_norm": "batch_norm.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

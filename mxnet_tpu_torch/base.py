@@ -6,11 +6,44 @@ from __future__ import annotations
 import os
 import threading
 
-__all__ = ["MXNetError", "NameManager", "atomic_write", "atomic_write_bytes"]
+__all__ = ["MXNetError", "NameManager", "Registry", "atomic_write",
+           "atomic_write_bytes"]
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework."""
+
+
+class Registry:
+    """Named classes by lower-cased name, with aliases (optimizers,
+    metrics, initializers).  A name the JAX package knows but this package
+    does not raises "not ported yet"."""
+
+    def __init__(self, kind):
+        self._kind = kind
+        self._entries = {}
+
+    def register(self, obj=None, name=None):
+        def _do(o):
+            self._entries[(name or o.__name__).lower()] = o
+            return o
+
+        return _do if obj is None else _do(obj)
+
+    def alias(self, obj, *names):
+        for n in names:
+            self._entries[n.lower()] = obj
+        return obj
+
+    def get(self, name):
+        key = str(name).lower()
+        if key not in self._entries:
+            raise MXNetError("%s %r is not ported yet (have %s)"
+                             % (self._kind, name, sorted(self._entries)))
+        return self._entries[key]
+
+    def create(self, name, *args, **kwargs):
+        return self.get(name)(*args, **kwargs)
 
 
 def _fsync_dir(path):

@@ -1,5 +1,7 @@
 """Weights carried across from the JAX package: numpy dicts and the params
-blob ``mxnet_tpu.serving.save_model`` writes, as torch tensors."""
+blob ``mxnet_tpu.serving.save_model`` writes, as torch tensors, and a
+``Module``'s parameters in and out as numpy (so both packages can start a
+training run from the same weights)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,8 @@ import torch
 
 from .predict import load_ndarray_file
 
-__all__ = ["params_from_numpy", "params_from_blob"]
+__all__ = ["params_from_numpy", "params_from_blob", "set_module_params",
+           "module_params_to_numpy"]
 
 
 def params_from_numpy(params, device):
@@ -25,3 +28,18 @@ def params_from_blob(blob, device):
     return params_from_numpy(
         {k[4:] if k.startswith(("arg:", "aux:")) else k: v
          for k, v in raw.items()}, device)
+
+
+def set_module_params(module, arg_params, aux_params):
+    """Copy ``{name: np.ndarray}`` dicts (e.g. the JAX package's
+    ``Module.get_params()`` as numpy) into a bound port ``Module``; every
+    parameter and auxiliary state must be present."""
+    module.set_params({k: np.asarray(v) for k, v in arg_params.items()},
+                      {k: np.asarray(v) for k, v in aux_params.items()})
+
+
+def module_params_to_numpy(module):
+    """A port ``Module``'s ``(arg_params, aux_params)`` as numpy dicts."""
+    arg, aux = module.get_params()
+    return ({k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()})

@@ -59,9 +59,18 @@ class NDArray:
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
             src = value._t
+        elif isinstance(value, torch.Tensor):
+            src = value
         else:
-            src = torch.as_tensor(np.asarray(value))
-        self._t[key] = src.to(device=self._t.device, dtype=self._t.dtype)
+            src = torch.tensor(np.asarray(value))
+        with torch.no_grad():
+            self._t[key] = src.to(device=self._t.device, dtype=self._t.dtype)
+
+    def __getitem__(self, key):
+        return NDArray(self._t[key])
+
+    def copy(self):
+        return NDArray(self._t.detach().clone())
 
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),

@@ -15,7 +15,9 @@ PyTorch version), counterpart of ``mxnet_tpu/ops/attention.py``.
 
 Shapes follow (batch, heads, seq, head_dim) throughout.  Forward only: the
 backward (with the ``dlse`` term ring attention needs) comes with the
-training slice.
+LM-training slice.  Until then :func:`flash_attention_cuda` raises when
+autograd would need a gradient through it, instead of returning a tensor
+that silently has none.
 """
 
 from __future__ import annotations
@@ -104,6 +106,10 @@ def _c_args(lib):
 def flash_attention_cuda(q, k, v, causal, scale):
     """Launch kernel K3 on q's card, on the current stream.  Returns
     ``(out, lse)``; raises on inputs the kernel does not take."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise MXNetError("flash attention: K3 backward not ported yet, so "
+                         "the kernel cannot take q, k or v that require "
+                         "grad (run under torch.no_grad() or inference)")
     _check_cuda_inputs(q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]

@@ -1,6 +1,8 @@
 """Backward (argument) shape inference rules, the part of
-``mxnet_tpu/ops/infer.py`` the served path needs: ``simple_bind`` sizes
-weights and ``softmax_label`` from the data shape alone through them.
+``mxnet_tpu/ops/infer.py`` the served and training paths need:
+``simple_bind`` sizes weights, BatchNorm's gamma/beta/moving stats and
+``softmax_label`` from the data shape alone through them.  Pooling has no
+parameters, so its output shape comes from the ``meta`` run alone.
 
 Each rule: ``(attrs, in_shapes, in_dtypes, aux_shapes) -> (in_shapes,
 aux_shapes)`` filling ``None`` entries; shapes are tuples or None.
@@ -32,6 +34,28 @@ def _fc(attrs, ins, dts, auxs):
             ins[1] = (attrs["num_hidden"], in_dim)
         if not attrs["no_bias"] and ins[2] is None:
             ins[2] = (attrs["num_hidden"],)
+    return ins, auxs
+
+
+@rule("Convolution")
+def _conv(attrs, ins, dts, auxs):
+    data = ins[0]
+    if data is not None:
+        if ins[1] is None:
+            ins[1] = (attrs["num_filter"], data[1] // attrs["num_group"]) \
+                + tuple(attrs["kernel"])
+        if not attrs["no_bias"] and ins[2] is None:
+            ins[2] = (attrs["num_filter"],)
+    return ins, auxs
+
+
+@rule("BatchNorm")
+def _bn(attrs, ins, dts, auxs):
+    data = ins[0]
+    if data is not None:
+        c = (data[1],)
+        ins = [data] + [c if s is None else s for s in ins[1:]]
+        auxs = [c if s is None else s for s in auxs]
     return ins, auxs
 
 

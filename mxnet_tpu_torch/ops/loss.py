@@ -1,5 +1,10 @@
-"""Output ops on the served path (counterpart of ``mxnet_tpu/ops/loss.py``):
-the ``SoftmaxOutput`` forward.  Its custom backward comes with training.
+"""Output ops (counterpart of ``mxnet_tpu/ops/loss.py``): ``SoftmaxOutput``.
+
+Its backward is the reference's bespoke rule, not the autograd of the
+forward: ``grad = (p - onehot(label)) * grad_scale`` with the
+``normalization``/``use_ignore`` rules, the head gradient ignored unless
+``out_grad`` — a :class:`torch.autograd.Function`, as the JAX package
+wires it in with ``jax.custom_vjp`` (``mxnet_tpu/ops/loss.py:54-100``).
 """
 
 from __future__ import annotations
@@ -9,14 +14,68 @@ import torch
 from .registry import pbool, pfloat, pstr, register
 
 
-def _softmax_output(attrs, inputs, aux, is_train):
-    data = inputs[0]  # the label input is unused in the forward
-    if attrs["multi_output"]:
-        return [torch.softmax(data, dim=1)]
-    if attrs["preserve_shape"]:
-        return [torch.softmax(data, dim=-1)]
+def _softmax(data, multi_output, preserve_shape):
+    if multi_output:
+        return torch.softmax(data, dim=1)
+    if preserve_shape:
+        return torch.softmax(data, dim=-1)
     flat = data.reshape(data.shape[0], -1)
-    return [torch.softmax(flat, dim=-1).reshape(data.shape)]
+    return torch.softmax(flat, dim=-1).reshape(data.shape)
+
+
+def softmax_output_grad(p, label, g, grad_scale, ignore_label, multi_output,
+                        use_ignore, normalization, out_grad):
+    """The SoftmaxOutput gradient w.r.t. its data input."""
+    lab = label.to(torch.int64)  # truncates toward zero, as astype(int32)
+    axis = 1 if multi_output else p.ndim - 1
+    if multi_output:
+        # data (n, k, x...) with label (n, x...), or flattened (n, prod(x))
+        lab = lab.reshape((p.shape[0],) + tuple(p.shape[2:]))
+    cls_shape = [1] * p.ndim
+    cls_shape[axis] = p.shape[axis]
+    classes = torch.arange(p.shape[axis], device=p.device).reshape(cls_shape)
+    # an out-of-range label (ignore_label -1) one-hots to all zeros
+    onehot = (lab.unsqueeze(axis) == classes).to(p.dtype)
+    grad = p - onehot
+    valid = torch.ones_like(lab, dtype=p.dtype)
+    if use_ignore:
+        valid = (lab != ignore_label).to(p.dtype)
+        grad = grad * valid.unsqueeze(axis)
+    scale = grad_scale
+    if normalization == "batch":
+        scale = scale / p.shape[0]
+    elif normalization == "valid":
+        scale = scale / torch.clamp(valid.sum(), min=1.0)
+    grad = grad * scale
+    if out_grad:
+        grad = grad * g
+    return grad.to(p.dtype)
+
+
+class SoftmaxOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        p = _softmax(data, attrs["multi_output"], attrs["preserve_shape"])
+        ctx.save_for_backward(p, label)
+        ctx.attrs = attrs
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        a = ctx.attrs
+        grad = softmax_output_grad(
+            p, label, g, a["grad_scale"], a["ignore_label"],
+            a["multi_output"], a["use_ignore"], a["normalization"],
+            a["out_grad"])
+        return grad, None, None
+
+
+def _softmax_output(attrs, inputs, aux, is_train):
+    data, label = inputs
+    if torch.is_grad_enabled() and data.requires_grad:
+        return [SoftmaxOutputFn.apply(data, label, attrs)]
+    return [_softmax(data, attrs["multi_output"], attrs["preserve_shape"])]
 
 
 register("SoftmaxOutput", _softmax_output, arguments=("data", "label"),

@@ -1,16 +1,23 @@
-"""Layer ops on the served path (counterpart of ``mxnet_tpu/ops/nn.py``):
-``FullyConnected`` and ``Activation``.
+"""Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``): ``FullyConnected``,
+``Activation``, ``Convolution``, ``Pooling`` and ``BatchNorm``.
 
-Both are plain ``torch`` calls in f32: the JAX package leaves them to XLA,
-outside any Pallas kernel, so they have no hand-written kernel here.
+FullyConnected, Activation, Convolution and Pooling are plain ``torch``
+calls in f32: the JAX package leaves them to XLA, outside any Pallas
+kernel, so they have no hand-written kernel here.  Train-mode BatchNorm
+goes to kernels K1/K2 (``ops/bn_kernel.py``) on the card; its other modes
+are plain tensor code, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from .registry import REQUIRED, pbool, pint, pstr, register
+from ..base import MXNetError
+from . import bn_kernel
+from .registry import REQUIRED, pbool, pfloat, pint, pstr, ptuple, register
 
 
 def _fully_connected(attrs, inputs, aux, is_train):
@@ -49,3 +56,155 @@ def _activation(attrs, inputs, aux, is_train):
 
 register("Activation", _activation,
          params={"act_type": (pstr, REQUIRED)}, hint="activation")
+
+
+# -- Convolution --------------------------------------------------------------
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _norm_stp(kernel, stride, dilate, pad):
+    nd = len(kernel)
+    return (tuple(stride) if stride else (1,) * nd,
+            tuple(dilate) if dilate else (1,) * nd,
+            tuple(pad) if pad else (0,) * nd)
+
+
+def _convolution(attrs, inputs, aux, is_train):
+    data, weight = inputs[0], inputs[1]
+    if data.dtype != weight.dtype:
+        data = data.to(weight.dtype)
+    kernel = attrs["kernel"]
+    nd = len(kernel)
+    if nd not in _CONV:
+        raise MXNetError("Convolution: %d-d kernels are not supported" % nd)
+    if attrs["layout"] not in (None, "NCW", "NCHW", "NCDHW"):
+        raise MXNetError("Convolution: layout %r not ported yet"
+                         % attrs["layout"])
+    stride, dilate, pad = _norm_stp(kernel, attrs["stride"], attrs["dilate"],
+                                    attrs["pad"])
+    bias = None if attrs["no_bias"] else inputs[2]
+    return [_CONV[nd](data, weight, bias, stride=stride, padding=pad,
+                      dilation=dilate, groups=attrs["num_group"])]
+
+
+# workspace / cudnn_tune / cudnn_off are the reference's cuDNN hints: kept
+# so graph JSON round-trips, and without effect, as in the JAX package
+_CONV_PARAMS = {
+    "kernel": (ptuple, REQUIRED), "stride": (ptuple, ()),
+    "dilate": (ptuple, ()), "pad": (ptuple, ()),
+    "num_filter": (pint, REQUIRED), "num_group": (pint, 1),
+    "workspace": (pint, 1024), "no_bias": (pbool, False),
+    "cudnn_tune": (pstr, None), "cudnn_off": (pbool, False),
+    "layout": (pstr, None),
+}
+
+register("Convolution", _convolution,
+         arguments=lambda a: ["data", "weight"]
+         + ([] if a["no_bias"] else ["bias"]),
+         params=_CONV_PARAMS, hint="convolution")
+
+
+# -- Pooling ------------------------------------------------------------------
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool_out_dim(x, k, p, s, convention):
+    if convention == "full":
+        return int(math.ceil(float(x + 2 * p - k) / s)) + 1
+    return int(math.floor(float(x + 2 * p - k) / s)) + 1
+
+
+def _pooling(attrs, inputs, aux, is_train):
+    data = inputs[0]
+    nd = data.ndim - 2
+    if nd not in _MAX_POOL:
+        raise MXNetError("Pooling: %d-d inputs are not supported" % nd)
+    if attrs["global_pool"]:
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
+        convention = "valid"
+    else:
+        kernel = attrs["kernel"]
+        stride, _, pad = _norm_stp(kernel, attrs["stride"], (), attrs["pad"])
+        convention = attrs["pooling_convention"]
+    # explicit padding: `pad` before, and after as much as the output size
+    # needs ('full' rounds up) but never less than `pad`
+    widths = []
+    for i in reversed(range(nd)):
+        o = _pool_out_dim(data.shape[2 + i], kernel[i], pad[i], stride[i],
+                          convention)
+        need = (o - 1) * stride[i] + kernel[i] - data.shape[2 + i] - pad[i]
+        widths += [pad[i], max(need, pad[i])]
+    pt = attrs["pool_type"]
+    if pt == "max":
+        # implicit -inf padding
+        x = F.pad(data, widths, value=float("-inf")) if any(widths) else data
+        return [_MAX_POOL[nd](x, kernel, stride)]
+    if pt in ("avg", "sum"):
+        # the window counts its padding (the reference's mshadow pool)
+        x = F.pad(data, widths) if any(widths) else data
+        out = _AVG_POOL[nd](x, kernel, stride)
+        return [out * float(math.prod(kernel)) if pt == "sum" else out]
+    raise MXNetError("Pooling: bad pool_type %r" % pt)
+
+
+register("Pooling", _pooling,
+         params={"kernel": (ptuple, ()), "pool_type": (pstr, "max"),
+                 "global_pool": (pbool, False), "stride": (ptuple, ()),
+                 "pad": (ptuple, ()), "pooling_convention": (pstr, "valid")},
+         aliases=("Pooling_v1",), hint="pooling")
+
+
+# -- BatchNorm ----------------------------------------------------------------
+def _moving(moving, batch, momentum):
+    with torch.no_grad():
+        return moving * momentum + batch.detach() * (1 - momentum)
+
+
+def _batch_norm(attrs, inputs, aux, is_train, act_type=None):
+    """Returns ``(outputs, new_aux)``.  ``act_type="relu"`` fuses the
+    activation into the kernel; only the executor's BN->ReLU peephole sets
+    it (the registered op always passes None)."""
+    x, gamma, beta = inputs
+    moving_mean, moving_var = aux
+    eps, fix_gamma, mom = attrs["eps"], attrs["fix_gamma"], attrs["momentum"]
+    relu = act_type == "relu"
+    use_batch = is_train and not attrs["use_global_stats"]
+    if use_batch and not attrs["output_mean_var"]:
+        out, mean, var = bn_kernel.bn_train(x, gamma, beta, eps, fix_gamma,
+                                            relu)
+        return [out], [_moving(moving_mean, mean, mom),
+                       _moving(moving_var, var, mom)]
+    red = (0,) + tuple(range(2, x.ndim))
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    if use_batch:
+        # output_mean_var: mean and var are outputs that carry gradients,
+        # so this mode stays plain tensor code (two-pass, f32, biased)
+        xf = x.float()
+        mean = xf.mean(dim=red)
+        var = torch.square(xf - mean.reshape(bshape)).mean(dim=red)
+    else:
+        mean, var = moving_mean, moving_var
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    scale = (g.float() * torch.rsqrt(var + eps)).to(x.dtype)
+    shift = (beta.float() - mean * scale.float()).to(x.dtype)
+    out = x * scale.reshape(bshape) + shift.reshape(bshape)
+    if relu:
+        out = torch.relu(out)
+    outs = [out, mean, var] if attrs["output_mean_var"] else [out]
+    if use_batch:
+        return outs, [_moving(moving_mean, mean, mom),
+                      _moving(moving_var, var, mom)]
+    return outs, None
+
+
+register("BatchNorm", _batch_norm,
+         arguments=("data", "gamma", "beta"),
+         aux_states=("moving_mean", "moving_var"),
+         outputs=lambda a: ["output", "mean", "var"] if a["output_mean_var"]
+         else ["output"],
+         params={"eps": (pfloat, 1e-3), "momentum": (pfloat, 0.9),
+                 "fix_gamma": (pbool, True),
+                 "use_global_stats": (pbool, False),
+                 "output_mean_var": (pbool, False)},
+         aliases=("CuDNNBatchNorm",), hint="batchnorm", updates_aux=True)

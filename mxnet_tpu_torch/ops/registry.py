@@ -4,7 +4,9 @@
 An :class:`OpDef` bundles an op's named inputs/outputs, its typed attribute
 spec (values parse from python values *or* strings, so graph JSON round
 trips) and ``apply``, a plain function on tensors
-``(attrs, inputs, aux, is_train) -> outputs``.  Forward shape and dtype
+``(attrs, inputs, aux, is_train) -> outputs`` (or ``(outputs, new_aux)``
+for an op registered with ``updates_aux=True``, like BatchNorm's moving
+statistics).  Forward shape and dtype
 inference is derived from ``apply`` by running it on ``meta`` tensors,
 where the JAX package uses ``jax.eval_shape``.
 """
@@ -89,9 +91,12 @@ def _as_fn(x):
 
 class OpDef:
     def __init__(self, name, apply_fn, *, arguments=("data",), aux_states=(),
-                 outputs=("output",), params=None, hint=None):
+                 outputs=("output",), params=None, hint=None,
+                 updates_aux=False):
         self.name = name
         self._apply = apply_fn
+        #: apply_fn returns (outputs, new aux values or None)
+        self.updates_aux = updates_aux
         self._arguments = _as_fn(arguments)
         self._aux_states = _as_fn(aux_states)
         self._outputs = _as_fn(outputs)
@@ -132,12 +137,20 @@ class OpDef:
 
     def apply(self, attrs, inputs, aux, is_train):
         """Returns the list of output tensors."""
+        return self.apply_with_aux(attrs, inputs, aux, is_train)[0]
+
+    def apply_with_aux(self, attrs, inputs, aux, is_train):
+        """Returns ``(outputs, new_aux)``; ``new_aux`` is None unless the
+        op updates its auxiliary states (train-mode BatchNorm)."""
         outs = self._apply(attrs, list(inputs), list(aux), is_train)
+        new_aux = None
+        if self.updates_aux:
+            outs, new_aux = outs
         n = len(self.list_outputs(attrs))
         if len(outs) != n:
             raise MXNetError("op %s: apply returned %d outputs, declared %d"
                              % (self.name, len(outs), n))
-        return outs
+        return outs, new_aux
 
     def infer(self, attrs, in_metas, aux_metas):
         """Output ``meta`` tensors (shape + dtype, no data) for ``meta``

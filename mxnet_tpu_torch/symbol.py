@@ -5,7 +5,8 @@ The graph JSON is the JAX package's format, so a graph written by either
 package loads in the other.  Shape inference walks the graph in
 topological order, filling parameter shapes with the per-op backward rules
 (``ops/infer.py``) and propagating outputs by running each op on ``meta``
-tensors.  ``simple_bind`` allocates the arrays and returns a forward-only
+tensors.  ``simple_bind`` allocates the arrays (and gradients for
+``grad_req`` other than "null") and returns an
 :class:`~mxnet_tpu_torch.executor.Executor`.
 """
 
@@ -202,6 +203,19 @@ class Symbol:
                 names.append("%s_%s" % (node.name, outs[idx]))
         return names
 
+    def attr_dict(self):
+        """{node name: {attr: str}} for every node with attributes (the
+        initializer's ``__init__`` and the optimizer's ``__lr_mult__``/
+        ``__wd_mult__`` are read from here)."""
+        out = {}
+        for node in self._nodes():
+            d = dict(node.misc_attr)
+            if not node.is_variable:
+                d.update({k: _attr_str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
     def get_internals(self):
         """Every intermediate output as one multi-output Symbol."""
         entries = []
@@ -260,8 +274,10 @@ class Symbol:
     # -- binding ----------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="null", type_dict=None,
                     **kwargs):
-        """Infer every shape from ``kwargs`` and allocate a forward-only
-        executor on ``ctx`` (default: the card, ``gpu(0)``)."""
+        """Infer every shape from ``kwargs`` and allocate an executor on
+        ``ctx`` (default: the card, ``gpu(0)``); ``grad_req`` ("null",
+        "write" or "add", or a per-argument list or dict) allocates the
+        gradients of a training executor."""
         from .executor import Executor
 
         return Executor.simple_bind(self, ctx, grad_req=grad_req,

@@ -5,9 +5,11 @@ that has only PyTorch; there, from the repository root:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Without a card each test skips inside the ``cuda_device`` fixture.  The
+Without a card each test skips inside the ``cuda_device`` fixture.  Each
 kernel is held against its plain version with TF32 off for both; the sums
-run in another order, hence ``rtol=atol=1e-4``.
+run in another order, hence ``rtol=atol=1e-4`` for flash attention (K3),
+and for BatchNorm (K1/K2) a max error of ``1e-4`` relative to the largest
+magnitude of each output (its per-channel sums span up to 6.4 M terms).
 """
 
 import numpy as np
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch.ops import attention as tatt
+from mxnet_tpu_torch.ops import bn_kernel
 
 
 @pytest.fixture
@@ -100,3 +104,138 @@ def test_served_lm_on_card_launches_once_per_dispatch(cuda_device, tmp_path):
     finally:
         reg.close()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_inputs_that_need_a_gradient(cuda_device):
+    """K3 has no backward yet: under autograd it raises instead of
+    returning an output with no gradient path."""
+    q, k, v = _qkv(1, 2, 16, 16, 32, 1, cuda_device)
+    q.requires_grad_(True)
+    with pytest.raises(mx.MXNetError, match="backward not ported"):
+        tatt.flash_attention(q, k, v)
+    with torch.no_grad():
+        tatt.flash_attention(q, k, v)
+
+
+def _assert_close_scaled(got, want, tol=1e-4):
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fix_gamma,relu,offset", [
+    ((128, 3, 224, 224), True, False, 120.0),   # bn_data: 3 huge channels
+    ((128, 2048, 7, 7), False, True, 0.0),      # the last BN
+    ((16, 64, 13, 11), False, True, 0.0),       # odd spatial
+    ((6, 40, 5), True, True, 1.0),              # fix_gamma + ReLU, 3D
+    ((9, 7), False, False, 0.0),                # 2D
+])
+def test_bn_kernels_match_plain(cuda_device, shape, fix_gamma, relu, offset):
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy((rs.standard_normal(shape) * 50 + offset)
+                         .astype(np.float32)).to(cuda_device)
+    c = shape[1]
+    gamma = torch.from_numpy(rs.uniform(0.5, 1.5, c).astype(np.float32)) \
+        .to(cuda_device)
+    beta = torch.from_numpy(rs.normal(0, 1, c).astype(np.float32)) \
+        .to(cuda_device)
+    g = torch.from_numpy(rs.standard_normal(shape).astype(np.float32)) \
+        .to(cuda_device)
+    before = (bn_kernel.bn_fwd_cuda.launches, bn_kernel.bn_bwd_cuda.launches)
+    y, mean, var = bn_kernel.bn_fwd_cuda(x, gamma, beta, 1e-3, fix_gamma,
+                                         relu)
+    torch.cuda.synchronize()
+    py, pmean, pvar = bn_kernel.bn_fwd_plain(x, gamma, beta, 1e-3,
+                                             fix_gamma, relu)
+    for got, want in ((y, py), (mean, pmean), (var, pvar)):
+        _assert_close_scaled(got, want)
+    # the same saved stats into both backwards: the ReLU masks agree
+    dx, dg, db = bn_kernel.bn_bwd_cuda(x, g, mean, var, gamma, beta, 1e-3,
+                                       fix_gamma, relu)
+    torch.cuda.synchronize()
+    pdx, pdg, pdb = bn_kernel.bn_bwd_plain(x, g, mean, var, gamma, beta,
+                                           1e-3, fix_gamma, relu)
+    for got, want in ((dx, pdx), (dg, pdg), (db, pdb)):
+        _assert_close_scaled(got, want)
+    assert (bn_kernel.bn_fwd_cuda.launches,
+            bn_kernel.bn_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # deterministic: no atomics in the statistics
+    y2, mean2, var2 = bn_kernel.bn_fwd_cuda(x, gamma, beta, 1e-3, fix_gamma,
+                                            relu)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) \
+        and torch.equal(var, var2)
+
+
+@pytest.mark.cuda
+def test_bn_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros((4, 3, 5, 5), device=cuda_device)
+    vec = torch.ones(3, device=cuda_device)
+    with pytest.raises(mx.MXNetError, match="float32"):
+        bn_kernel.bn_fwd_cuda(x.to(torch.bfloat16), vec, vec, 1e-3, False)
+    with pytest.raises(mx.MXNetError, match="cpu"):
+        bn_kernel.bn_fwd_cuda(x, vec.cpu(), vec, 1e-3, False)
+    with pytest.raises(mx.MXNetError, match="contiguous"):
+        bn_kernel.bn_fwd_cuda(x.transpose(2, 3), vec, vec, 1e-3, False)
+    with pytest.raises(mx.MXNetError, match="contiguous"):
+        bn_kernel.bn_bwd_cuda(x, x.transpose(2, 3), vec, vec, vec, vec,
+                              1e-3, False)
+    # the size limits live in the kernel source, which sizes the work space
+    lib = _kernels.load("batch_norm")
+    with pytest.raises(mx.MXNetError, match="does not take"):
+        bn_kernel._work(lib, x, 1, 70000, 1, bwd=False)
+    with pytest.raises(mx.MXNetError, match="does not take"):
+        bn_kernel._work(lib, x, 2 ** 16, 1, 2 ** 15, bwd=True)
+    assert bn_kernel._work(lib, x, 4, 3, 25, bwd=True).numel() == 3 * 2 + 9
+
+
+def _resnet50_step(net, ctx, x, y):
+    """One fit step from seeded Xavier weights: ({name: update}, aux)."""
+    it = mx.io.NDArrayIter(x, y, batch_size=x.shape[0])
+    mod = mx.mod.Module(net, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mx.init.seed(1)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    before = mx.convert.module_params_to_numpy(mod)[0]
+    bn_kernel.bn_fwd_cuda.launches = bn_kernel.bn_bwd_cuda.launches = 0
+    mod.fit(it, num_epoch=1, optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    launches = (bn_kernel.bn_fwd_cuda.launches,
+                bn_kernel.bn_bwd_cuda.launches)
+    arg, aux = mx.convert.module_params_to_numpy(mod)
+    return {k: arg[k] - before[k] for k in arg}, aux, launches
+
+
+@pytest.mark.cuda
+def test_resnet50_step_launches_k1_and_k2_51_times(cuda_device):
+    """One Module step of full-width ResNet-50 (batch 8) on the card: the
+    graph has 51 BatchNorms (50 feeding only a ReLU, fused), each one K1
+    and one K2 launch; the step matches the same step on the CPU.
+
+    The first step of a random ResNet-50 is ill-conditioned: an input
+    perturbed by 1e-7 relative moves the CPU's own updates by 1-2%.  So
+    each parameter's update on the card is held to within 3x the largest
+    distance of the CPU's updates on three perturbed inputs, and the
+    moving statistics, a forward quantity, to ``rtol=1e-4, atol=1e-5``."""
+    net = mx.models.get_symbol("resnet", num_classes=1000, num_layers=50,
+                               image_shape="3,224,224")
+    rs = np.random.RandomState(0)
+    x = rs.uniform(0, 255, (8, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, 1000, 8).astype(np.float32)
+    gu, gaux, glaunch = _resnet50_step(net, mx.gpu(0), x, y)
+    cu, caux, claunch = _resnet50_step(net, mx.cpu(), x, y)
+    assert glaunch == (51, 51) and claunch == (0, 0)
+
+    def dists(a, b):
+        return np.array([np.linalg.norm(a[k] - b[k]) for k in sorted(cu)])
+
+    floor = np.max([dists(_resnet50_step(net, mx.cpu(), (x * (
+        1 + 1e-7 * rs.standard_normal(x.shape))).astype(np.float32), y)[0],
+        cu) for _ in range(3)], axis=0)
+    ratio = dists(gu, cu) / np.maximum(floor, 1e-30)
+    assert ratio.max() <= 3, (sorted(cu)[int(ratio.argmax())], ratio.max())
+    for k in caux:
+        np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
