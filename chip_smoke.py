@@ -22,7 +22,17 @@
    ``aten.native_batch_norm_backward`` (K2) as yardsticks the port never
    calls, and the bound (bytes over 3.35 TB/s: K1 reads x and writes y,
    K2 reads x and g and writes dx).
-5. Serving phase: ``build_lm`` at vocab 32000, embed 1024, 8 heads of 128,
+5. LSTM kernel phase: at each bucket length T in {10, ..., 60}, N=32,
+   H=200, f32, K4 (inference forward), K5 (training forward) and K6
+   (backward) held against their plain versions (forward outputs within
+   ``1e-5``, backward within ``1e-4`` of each output's largest magnitude;
+   K6 is fed K5's saved tensors in both), dw4 and dbh repeating bit for
+   bit across two K6 launches; timed beside the plain versions, cuDNN's
+   LSTM (``torch.nn.LSTM``, one layer, a yardstick the port never calls;
+   it includes the input projection, whose matmuls are printed beside
+   the kernel) and the bound (the larger of the products over 67 TFLOP/s
+   and the bytes over 3.35 TB/s).
+6. Serving phase: ``build_lm`` at vocab 32000, embed 1024, 8 heads of 128,
    seq 2048, FFN 2048, f32, buckets (1, 4), weights drawn from ``--seed``,
    published with ``save_model`` and loaded with ``ModelRegistry().load_dir``
    on the default context (the card).  Six concurrent requests (one of 1
@@ -31,7 +41,7 @@
    finiteness and rows that sum to 1, and the 1-row answer is held against
    the same model computed in plain PyTorch with the plain attention.  The
    K3 launch count must equal the dispatches (warm-up included).
-6. Training phase: ``Module(resnet50).fit`` on the default context (the
+7. Training phase: ``Module(resnet50).fit`` on the default context (the
    card) at full width (224x224x3, 1000 classes, f32, batch 128) over
    6 batches of synthetic data from ``--seed``: SGD with
    momentum 0.9, wd 1e-4, lr 0.1 with a ``MultiFactorScheduler``, Xavier
@@ -45,7 +55,7 @@
    version, within ``1e-5`` of the output's largest magnitude; dgamma and
    dbeta against f64 sums, within ``1e-5`` of the sum of their terms'
    magnitudes, as they cancel).
-7. Step parity: the same ResNet-50 weights and batch (b4), one fit step on
+8. Step parity: the same ResNet-50 weights and batch (b4), one fit step on
    ``gpu(0)`` and on ``cpu()`` (the plain versions).  The first step of a
    random ResNet-50 is ill-conditioned (a 1e-7 input perturbation moves
    the updates by 1-2% on the CPU alone), so each parameter's update on
@@ -53,7 +63,24 @@
    on three perturbed inputs, measured in the run; the moving statistics
    within ``rtol=1e-4, atol=1e-5``.  The card step with the plain
    BatchNorm in place of K1/K2 is printed beside it as a second witness.
-8. Prints the kernel table as one JSON line, then the result line.
+9. LSTM training phase: the fused-LSTM LM of
+   ``example/rnn/fused_lstm_bucketing.py`` (``models.lstm_lm``: vocab
+   10000, embed 200, 2 LSTM layers of 200, f32) through
+   ``BucketingModule.fit`` on the card, batch 32, buckets 10-60, one
+   epoch over a Markov corpus from ``--seed`` (every bucket, at least two
+   batches each) with ``score`` on ``eval_data``, SGD lr 0.02, wd 1e-5,
+   Xavier (in, 2.34) with ``FusedRNN``, ``Perplexity(0)``.  It requires 2
+   K5 and 2 K6 launches per training batch, 2 K4 per eval batch, and no
+   plain version called on the card.  Prints the ms per batch per bucket
+   (CUDA events), the host copy of the outputs ``Perplexity`` takes,
+   peak memory, the (finite) validation perplexity and a profile of one
+   T=60 batch.
+10. LSTM step parity: one T=60 training step on the card and on the CPU
+   (plain versions) from the same weights; each parameter's update
+   within 1e-4 of its norm (3x the floor if an embedding perturbed by
+   1e-7 moves the CPU's own update by more).
+11. Prints the kernel table (K1-K6) as one JSON line, the card's name and
+   power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
 """
@@ -63,6 +90,7 @@ import contextlib
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -86,6 +114,10 @@ BN_STEP_TOL = 1e-5
 PARITY_PERTURBATIONS = 3
 BUCKETS = (1, 4)
 REQUEST_ROWS = (1, 4, 4, 4, 4, 4)
+#: the fused-LSTM LM of example/rnn/fused_lstm_bucketing.py at full width
+LSTM_VOCAB, LSTM_EMBED, LSTM_HIDDEN, LSTM_LAYERS = 10000, 200, 200, 2
+LSTM_BATCH, LSTM_BUCKETS = 32, (10, 20, 30, 40, 50, 60)
+LSTM_TRAIN_SENTENCES, LSTM_VAL_SENTENCES = 1200, 400
 
 
 def _time_ms(fn, iters, warmup=2):
@@ -782,6 +814,413 @@ def parity_phase(mx, bnk, seed):
     return ratio[worst]
 
 
+# -- the fused-LSTM language model (K4, K5, K6) -------------------------------
+def _lstm_bound(T, N, H, kernel):
+    """(bound_ms, bound_by): bytes each input read once and each output
+    written once over 3.35 TB/s, against the products over the 67 TFLOP/s
+    f32 peak (K4/K5: h @ w4, 2*4*N*H^2 per step; K6: the dh product and
+    dw4, twice that), the larger of the two."""
+    seq, state, w = T * N * H, N * H, 4 * H * H
+    words = {"K4": 4 * seq + w + 4 * H + 2 * state + seq + 2 * state,
+             "K5": 4 * seq + w + 4 * H + 2 * state + 6 * seq + 2 * state,
+             "K6": 4 * seq + 2 * seq + w + 2 * state + seq + 2 * state
+             + 4 * seq + w + 4 * H + 2 * state}[kernel]
+    flops = 2.0 * 4 * N * H * H * T * (2 if kernel == "K6" else 1)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, 4.0 * words / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def lstm_kernel_phase(rk, dev, seed):
+    """K4, K5 and K6 against their plain versions at every bucket length,
+    N=32, H=200: the forward outputs within ``1e-5`` and the backward's
+    within ``1e-4`` of each output's largest magnitude, dw4 and dbh bit
+    for bit across two K6 launches.  Timed beside the plain versions and,
+    as a yardstick the port never calls, cuDNN's LSTM (``torch.nn.LSTM``,
+    one layer at the same shape; it includes the input projection, so the
+    kernel is printed with that projection's matmuls beside it)."""
+    n, h = LSTM_BATCH, LSTM_HIDDEN
+    rows = {}
+    for T in LSTM_BUCKETS:
+        gen = torch.Generator(device=dev).manual_seed(seed + T)
+
+        def draw(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        x, wx, bx = draw(T, n, h), draw(4 * h, h, scale=h ** -0.5), draw(
+            4 * h, scale=0.1)
+        xp = (x @ wx.t() + bx).reshape(T, n, 4, h).permute(0, 2, 1, 3) \
+            .contiguous()
+        w4, bh = draw(4, h, h, scale=h ** -0.5), draw(4, h, scale=0.1)
+        h0, c0 = draw(n, h, scale=0.5), draw(n, h, scale=0.5)
+        dys, dhT, dcT = draw(T, n, h), draw(n, h), draw(n, h)
+        args = (xp, w4, bh, h0, c0)
+        got4 = rk.lstm_infer_cuda(*args)
+        got5 = rk.lstm_fwd_cuda(*args)
+        torch.cuda.synchronize()
+        want5 = rk.lstm_fwd_plain(*args)
+        want4 = (want5[0], want5[3], want5[4])
+        saved = (got5[1], got5[2], got5[0], w4, h0, c0, dys, dhT, dcT)
+        got6 = rk.lstm_bwd_cuda(*saved)
+        torch.cuda.synchronize()
+        want6 = rk.lstm_bwd_plain(*saved)
+        again = rk.lstm_bwd_cuda(*saved)
+        torch.cuda.synchronize()
+        if not (torch.equal(got6[1], again[1])
+                and torch.equal(got6[2], again[2])):
+            raise RuntimeError("K6's dw4/dbh differ between two launches "
+                               "at T=%d" % T)
+        errs = {}
+        for name, got, want, tol in (("K4", got4, want4, 1e-5),
+                                     ("K5", got5, want5, 1e-5),
+                                     ("K6", got6, want6, 1e-4)):
+            rel = max(_rel_err(g, w) for g, w in zip(got, want))
+            if not rel <= tol:
+                raise RuntimeError("%s disagrees with its plain version at "
+                                   "T=%d: %.3g of the output's magnitude "
+                                   "(limit %g)" % (name, T, rel, tol))
+            errs[name] = (max((g - w).abs().max().item()
+                              for g, w in zip(got, want)), rel)
+        # the yardstick: cuDNN, one layer, the same weights
+        lstm = torch.nn.LSTM(h, h).to(dev)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(wx)
+            lstm.bias_ih_l0.copy_(bx)
+            lstm.weight_hh_l0.copy_(w4.permute(1, 0, 2).reshape(h, 4 * h)
+                                    .t())
+            lstm.bias_hh_l0.copy_(bh.reshape(-1))
+        st = (h0[None], c0[None])
+        xg = x.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out, (hn, cn) = lstm(xg, st)
+        leaves = [xg] + list(lstm.parameters())
+
+        def cudnn_bwd():
+            torch.autograd.grad((out, hn, cn), leaves,
+                                (dys, dhT[None], dcT[None]),
+                                retain_graph=True)
+
+        def cudnn_fwd_train():
+            with torch.enable_grad():
+                lstm(xg, st)
+
+        with torch.no_grad():
+            lib = {"K4": _time_ms(lambda: lstm(x, st), 20)}
+        lib["K5"] = _time_ms(cudnn_fwd_train, 20)
+        lib["K6"] = _time_ms(cudnn_bwd, 20)
+        dxp2 = got6[0].permute(0, 2, 1, 3).reshape(T * n, 4 * h)
+        x2 = x.reshape(T * n, h)
+        proj = {"K4": _time_ms(lambda: x @ wx.t() + bx, 20)}
+        proj["K5"] = proj["K4"]
+        proj["K6"] = _time_ms(lambda: (dxp2 @ wx, dxp2.t() @ x2,
+                                       dxp2.sum(0)), 20)
+        calls = {"K4": lambda: rk.lstm_infer_cuda(*args),
+                 "K5": lambda: rk.lstm_fwd_cuda(*args),
+                 "K6": lambda: rk.lstm_bwd_cuda(*saved)}
+        plains = {"K4": lambda: rk.lstm_infer_plain(*args),
+                  "K5": lambda: rk.lstm_fwd_plain(*args),
+                  "K6": lambda: rk.lstm_bwd_plain(*saved)}
+        for name in ("K4", "K5", "K6"):
+            ms = _time_ms(calls[name], 20)
+            plain_ms = _time_ms(plains[name], 3, warmup=1)
+            bound_ms, bound_by = _lstm_bound(T, n, h, name)
+            rows[(name, T)] = dict(max_abs_err=errs[name][0], ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=lib[name])
+            print("kernel lstm %s T=%d N=%d H=%d: max_abs_err %.3g (%.2g of "
+                  "the magnitude), kernel %.4f ms (+ input-projection "
+                  "matmuls %.4f = %.4f), plain %.4f ms, cuDNN %.4f ms, "
+                  "bound %.4f ms (%s; %.1f us per step against the serial "
+                  "chain)" % (name, T, n, h, errs[name][0], errs[name][1],
+                              ms, proj[name], ms + proj[name], plain_ms,
+                              lib[name], bound_ms, bound_by,
+                              ms * 1e3 / T), flush=True)
+        del lstm, out, hn, cn, xg, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def lstm_plain_refused(rk):
+    """Within the block a plain version called on a CUDA tensor raises:
+    the main path must launch the kernels."""
+    names = ("lstm_infer_plain", "lstm_fwd_plain", "lstm_bwd_plain")
+    saved = {k: getattr(rk, k) for k in names}
+
+    def refuse(name):
+        def plain(*args):
+            if any(a.is_cuda for a in args):
+                raise RuntimeError("%s called on the card" % name)
+            return saved[name](*args)
+        return plain
+
+    for k in names:
+        setattr(rk, k, refuse(k))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(rk, k, v)
+
+
+def _lstm_module(mx, lstm_lm, ctx=None, key=max(LSTM_BUCKETS)):
+    sym_gen = lstm_lm.make_sym_gen(
+        lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS), LSTM_VOCAB, LSTM_EMBED,
+        LSTM_HIDDEN)
+    return mx.mod.BucketingModule(sym_gen, default_bucket_key=key) \
+        if ctx is None else mx.mod.BucketingModule(
+            sym_gen, default_bucket_key=key, context=ctx)
+
+
+def lstm_training_phase(mx, rk, seed):
+    """``BucketingModule.fit`` of the fused-LSTM LM at full width on the
+    card: every bucket, then one ``score`` pass on ``eval_data``; 2 K5 +
+    2 K6 launches per training batch, 2 K4 per eval batch, no plain
+    version on the card."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    random.seed(seed)
+    np.random.seed(seed)
+    its = [mx.rnn.BucketSentenceIter(
+        lstm_lm.synth_corpus(count, LSTM_VOCAB, seed=seed + s,
+                             buckets=LSTM_BUCKETS), LSTM_BATCH,
+        buckets=list(LSTM_BUCKETS), invalid_label=0, layout="TN")
+        for count, s in ((LSTM_TRAIN_SENTENCES, 3), (LSTM_VAL_SENTENCES, 17))]
+    train, val = its
+    per_bucket = {b: sum(1 for i, _ in train.idx if train.buckets[i] == b)
+                  for b in LSTM_BUCKETS}
+    if min(per_bucket.values()) < 2:
+        raise RuntimeError("a bucket has fewer than 2 training batches: %s"
+                           % per_bucket)
+    mod = _lstm_module(mx, lstm_lm)
+    marks, evals = [], []
+
+    def mark(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((param.locals["data_batch"].bucket_key, ev))
+
+    val_metric = mx.metric.Perplexity(0)
+    mx.init.seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    with lstm_plain_refused(rk):
+        # -- the main path: counts from 0, one epoch with eval --
+        rk.lstm_infer_cuda.launches = 0
+        rk.lstm_fwd_cuda.launches = 0
+        rk.lstm_bwd_cuda.launches = 0
+        start.record()
+        t0 = time.perf_counter()
+        mod.fit(train, eval_data=val, eval_metric=mx.metric.Perplexity(0),
+                validation_metric=val_metric, num_epoch=1,
+                batch_end_callback=mark,
+                eval_batch_end_callback=lambda p: evals.append(p.nbatch),
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": 0.02, "momentum": 0.0, "wd": 1e-5},
+                initializer=mx.init.Xavier(factor_type="in", magnitude=2.34))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = (rk.lstm_infer_cuda.launches, rk.lstm_fwd_cuda.launches,
+                    rk.lstm_bwd_cuda.launches)
+        # -- end of the main path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_train, n_eval = len(marks), len(evals)
+    want = (LSTM_LAYERS * n_eval, LSTM_LAYERS * n_train,
+            LSTM_LAYERS * n_train)
+    print("lstm training BucketingModule.fit vocab %d embed %d %dx%d LSTM "
+          "batch %d buckets %s on the card: %d training batches %s, %d eval "
+          "batches, fit %.2f s (bind and init included); K4/K5/K6 launches "
+          "%s (expected %s); peak memory allocated %.3f GB"
+          % (LSTM_VOCAB, LSTM_EMBED, LSTM_LAYERS, LSTM_HIDDEN, LSTM_BATCH,
+             list(LSTM_BUCKETS), n_train, per_bucket, n_eval, fit_s,
+             launches, want, peak_gb), flush=True)
+    if launches != want or n_eval == 0:
+        raise RuntimeError("LSTM kernels launched %s times, expected %s "
+                           "(2 K5 + 2 K6 per training batch, 2 K4 per eval "
+                           "batch)" % (launches, want))
+    times = {}
+    prev = start
+    for key, ev in marks:
+        times.setdefault(key, []).append(prev.elapsed_time(ev))
+        prev = ev
+    for key in LSTM_BUCKETS:
+        ms = times[key]
+        print("lstm training bucket %d: ms per batch (CUDA events between "
+              "batch ends, the first binds the bucket) %s; median after the "
+              "first %.3f ms = %.0f tokens/s" % (
+                  key, ["%.2f" % t for t in ms], np.median(ms[1:]),
+                  key * LSTM_BATCH / np.median(ms[1:]) * 1e3), flush=True)
+    (_, ppl), = val_metric.get_name_value()
+    arg, _ = mod.get_params()
+    bad = [k for k, v in arg.items() if not torch.isfinite(v._t).all()]
+    print("lstm training validation perplexity %.4f (vocab %d: a uniform "
+          "guess scores %d)" % (ppl, LSTM_VOCAB, LSTM_VOCAB), flush=True)
+    if bad or not np.isfinite(ppl):
+        raise RuntimeError("LSTM training gave non-finite params %s or "
+                           "perplexity %s" % (bad, ppl))
+    lstm_host_copy(mx, mod, val)
+    lstm_profile(mx, mod, train)
+    del mod
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lstm_host_copy(mx, mod, it):
+    """Per bucket: the device forward of one eval batch, then the host copy
+    of its (T*32, 10000) output and the host metric update, as
+    ``Perplexity`` takes them on every batch."""
+    it.reset()
+    seen = set()
+    for batch in it:
+        if batch.bucket_key in seen:
+            continue
+        seen.add(batch.bucket_key)
+        mod.forward(batch, is_train=False)
+        out = mod.get_outputs()[0]
+        dev_ms = _time_ms(lambda: mod.forward(batch, is_train=False), 3,
+                          warmup=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host = out.asnumpy()
+        copy_s = time.perf_counter() - t
+        metric = mx.metric.Perplexity(0)
+        t = time.perf_counter()
+        metric.update(batch.label, [host])
+        metric_s = time.perf_counter() - t
+        print("lstm eval bucket %d: device forward %.3f ms; host copy of "
+              "the output %.4f s (%.1f MB, %.2f GB/s); Perplexity update on "
+              "the host copy %.4f s" % (
+                  batch.bucket_key, dev_ms, copy_s, host.nbytes / 1e6,
+                  host.nbytes / copy_s / 1e9, metric_s), flush=True)
+
+
+def lstm_profile(mx, mod, it):
+    """One training batch of the longest bucket under torch.profiler,
+    forward+backward, update and the host metric: device time by group
+    and the device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    it.reset()
+    batch = next(b for b in it if b.bucket_key == max(LSTM_BUCKETS))
+    metric = mx.metric.Perplexity(0)
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        wall = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if dev_us(e) > 0
+               and e.device_type.name == "CUDA"]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        print("lstm profile: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return
+    rules = (("lstm kernels (K5/K6)", lambda k: "lstm_" in k),
+             ("memcpy", lambda k: "memcpy" in k),
+             ("gemm (projections, pred)", lambda k: "gemm" in k
+              or "sgemm" in k or "cutlass" in k),
+             ("softmax", lambda k: "softmax" in k),
+             ("optimizer (foreach)", lambda k: "multi_tensor" in k
+              or "foreach" in k),
+             ("embedding", lambda k: "embedding" in k or "index" in k))
+    groups = {}
+    for e in kernels:
+        k = e.key.lower()
+        name = next((n for n, test in rules if test(k)), "other")
+        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
+    print("lstm profile of one T=%d training batch with its metric update: "
+          "wall %.2f ms, device busy %.3f ms (idle share %.1f%%); by group: "
+          "%s" % (max(LSTM_BUCKETS), wall, total,
+                  100 * max(0.0, 1 - total / wall), ", ".join(
+                      "%s %.3f ms" % kv for kv in sorted(
+                          groups.items(), key=lambda kv: -kv[1]))),
+          flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print("lstm profile  %8.3f ms  x%-4d %s" % (
+            dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
+
+
+def lstm_step_updates(mx, lstm_lm, ctx, params, ids):
+    """One training step of the full-width LM from ``params`` on ``ctx``:
+    {name: update} as numpy."""
+    T = ids.shape[0]
+    mod = _lstm_module(mx, lstm_lm, ctx, key=T)
+    mod.bind([("data", ids.shape)], [("softmax_label", ids.shape)])
+    mod.init_params(mx.init.Zero())
+    mx.convert.set_module_params(mod, params, {})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.02, "momentum": 0.0, "wd": 1e-5})
+    label = np.concatenate([ids[1:], np.zeros_like(ids[:1])])
+    batch = mx.io.DataBatch(
+        [mx.nd.array(ids)], [mx.nd.array(label)], bucket_key=T,
+        provide_data=[mx.io.DataDesc("data", ids.shape)],
+        provide_label=[mx.io.DataDesc("softmax_label", ids.shape)])
+    mod.forward_backward(batch)
+    mod.update()
+    after = mx.convert.module_params_to_numpy(mod)[0]
+    return {k: after[k] - params[k] for k in params}
+
+
+def lstm_parity_phase(mx, seed):
+    """One training step at T=60 on the card (K5/K6) against the same step
+    on the CPU (the plain versions), from the same weights.  Each
+    parameter's update must agree within 1e-4 of its norm, unless an
+    embedding perturbed by 1e-7 relative moves the CPU's own update by
+    more than that (the floor): then within 3x the floor."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    T = max(LSTM_BUCKETS)
+    rs = np.random.RandomState(seed + 5)
+    ids = rs.randint(1, LSTM_VOCAB, (T, LSTM_BATCH)).astype(np.float32)
+    init = _lstm_module(mx, lstm_lm, mx.cpu(), key=T)
+    init.bind([("data", ids.shape)], [("softmax_label", ids.shape)])
+    mx.init.seed(seed)
+    init.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    params = mx.convert.module_params_to_numpy(init)[0]
+    del init
+    t = time.perf_counter()
+    gu = lstm_step_updates(mx, lstm_lm, mx.gpu(0), params, ids)
+    gs = time.perf_counter() - t
+    t = time.perf_counter()
+    cu = lstm_step_updates(mx, lstm_lm, mx.cpu(), params, ids)
+    cs = time.perf_counter() - t
+    perturbed = dict(params)
+    perturbed["embed_weight"] = (params["embed_weight"] * (
+        1 + 1e-7 * rs.standard_normal(params["embed_weight"].shape))) \
+        .astype(np.float32)
+    pu = lstm_step_updates(mx, lstm_lm, mx.cpu(), perturbed, ids)
+    worst = 0.0
+    for k in sorted(cu):
+        norm = max(float(np.linalg.norm(cu[k])), 1e-30)
+        dist = float(np.linalg.norm(gu[k] - cu[k])) / norm
+        floor = float(np.linalg.norm(pu[k] - cu[k])) / norm
+        bound = 3 * floor if floor > 1e-4 else 1e-4
+        worst = max(worst, dist / bound)
+        print("lstm parity T=%d %s: card vs CPU update %.3g of its norm, "
+              "perturbed-embedding floor %.3g, bound %.3g"
+              % (T, k, dist, floor, bound), flush=True)
+        if not dist <= bound:
+            raise RuntimeError("card and CPU updates of %s disagree: %.3g "
+                               "of the norm (bound %.3g)" % (k, dist, bound))
+    print("lstm parity one step b%d T=%d: card %.2f s, CPU %.2f s; worst "
+          "distance over its bound %.3g" % (LSTM_BATCH, T, gs, cs, worst),
+          flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -794,6 +1233,7 @@ def main():
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops import attention as att
     from mxnet_tpu_torch.ops import bn_kernel as bnk
+    from mxnet_tpu_torch.ops import rnn_kernel as rk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -802,9 +1242,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     print("device: %s (torch: %s, %d device(s))"
-          % (smi, name, torch.cuda.device_count()), flush=True)
+          % (smi, kind, torch.cuda.device_count()), flush=True)
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -821,10 +1261,13 @@ def main():
         raise RuntimeError("ResNet-50 has %d BatchNorms, expected 51"
                            % sum(configs.values()))
     _bn_rows, bn_totals = bn_kernel_phase(bnk, dev, args.seed, configs)
+    lstm_rows = lstm_kernel_phase(rk, dev, args.seed)
     launches = serving_phase(mx, att, dev, args.seed)
     k1_launches, k2_launches = training_phase(mx, bnk, args.seed,
                                               TRAIN_STEPS, bn_totals)
     parity_phase(mx, bnk, args.seed)
+    lstm_launches = lstm_training_phase(mx, rk, args.seed)
+    lstm_parity_phase(mx, args.seed)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"
@@ -840,10 +1283,20 @@ def main():
                dict(name="batch_norm_bwd", route="cuda", source=source,
                     replaces="mxnet_tpu/ops/bn_pallas.py:110",
                     launches=k2_launches, **bn_totals["bwd"])]
+    # the LSTM rows: times at T=60, N=32, H=200 (the default bucket);
+    # launches over the whole fit (K4 in its score pass)
+    t_max = max(LSTM_BUCKETS)
+    for (kid, kname, line), n in zip(
+            (("K4", "lstm_infer", 126), ("K5", "lstm_fwd", 56),
+             ("K6", "lstm_bwd", 82)), lstm_launches):
+        kernels.append(dict(
+            name=kname, route="cuda", source="mxnet_tpu_torch/csrc/lstm.cu",
+            replaces="mxnet_tpu/ops/rnn_pallas.py:%d" % line, launches=n,
+            **lstm_rows[(kid, t_max)]))
     print(json.dumps({"kernels": kernels}))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -3,17 +3,20 @@ Hopper.  Import as ``import mxnet_tpu_torch as mx``.
 
 Ported so far: the symbolic serving path (``mx.sym`` graphs, the
 executor, ``Predictor`` and the serving registry/batcher, with flash
-attention as a hand-written CUDA kernel, ``csrc/flash_attention.cu``) and
+attention as a hand-written CUDA kernel, ``csrc/flash_attention.cu``),
 training (``mx.mod.Module.fit`` with ``mx.io.NDArrayIter``, ``mx.init``,
 ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``, ``mx.callback`` and
 ``models.resnet``, with train-mode BatchNorm as hand-written CUDA kernels,
-``csrc/batch_norm.cu``).  The package imports ``torch`` and never ``jax``
-nor ``mxnet_tpu``.  Its entry points run on ``cuda:0`` unless the caller
-passes ``ctx=mx.cpu()`` (``context=`` for ``Module``); without a card they
-raise.
+``csrc/batch_norm.cu``) and the fused-LSTM language model
+(``mx.rnn.FusedRNNCell``, ``mx.rnn.BucketSentenceIter``,
+``mx.mod.BucketingModule`` and ``models.lstm_lm``, with the LSTM sequence
+forward and backward as hand-written CUDA kernels, ``csrc/lstm.cu``).
+The package imports ``torch`` and never ``jax`` nor ``mxnet_tpu``.  Its
+entry points run on ``cuda:0`` unless the caller passes ``ctx=mx.cpu()``
+(``context=`` for the modules); without a card they raise.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -45,10 +48,11 @@ from . import module
 from . import module as mod
 from . import convert
 from . import models
+from . import rnn
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "telemetry", "ops", "nd", "ndarray", "sym", "symbol",
            "Symbol", "Variable", "AttrScope", "Executor",
            "Predictor", "predict", "serving", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "callback", "io", "model",
-           "module", "mod", "convert", "models"]
+           "module", "mod", "convert", "models", "rnn"]

@@ -1,7 +1,9 @@
 """Weights carried across from the JAX package: numpy dicts and the params
 blob ``mxnet_tpu.serving.save_model`` writes, as torch tensors, and a
-``Module``'s parameters in and out as numpy (so both packages can start a
-training run from the same weights)."""
+``Module``'s or ``BucketingModule``'s parameters in and out as numpy (so
+both packages can start a training run from the same weights).  A fused
+RNN parameter blob (``lstm_parameters``) crosses as it is: its layout is
+the same in both packages (``ops/rnn.py``)."""
 
 from __future__ import annotations
 
@@ -32,14 +34,15 @@ def params_from_blob(blob, device):
 
 def set_module_params(module, arg_params, aux_params):
     """Copy ``{name: np.ndarray}`` dicts (e.g. the JAX package's
-    ``Module.get_params()`` as numpy) into a bound port ``Module``; every
-    parameter and auxiliary state must be present."""
+    ``Module.get_params()`` as numpy) into a bound port ``Module`` or
+    ``BucketingModule``; every parameter and auxiliary state must be
+    present."""
     module.set_params({k: np.asarray(v) for k, v in arg_params.items()},
                       {k: np.asarray(v) for k, v in aux_params.items()})
 
 
 def module_params_to_numpy(module):
-    """A port ``Module``'s ``(arg_params, aux_params)`` as numpy dicts."""
+    """A port module's ``(arg_params, aux_params)`` as numpy dicts."""
     arg, aux = module.get_params()
     return ({k: v.asnumpy() for k, v in arg.items()},
             {k: v.asnumpy() for k, v in aux.items()})

@@ -102,7 +102,12 @@ class Executor:
 
     @staticmethod
     def simple_bind(symbol, ctx=None, grad_req="null", type_dict=None,
-                    **shapes):
+                    shared_exec=None, **shapes):
+        """Bind ``symbol`` on ``ctx`` with every shape inferred from
+        ``shapes``.  With ``shared_exec`` (bucketing), each argument,
+        gradient and auxiliary state whose name and shape match one of
+        ``shared_exec``'s is that very NDArray: the executors train one
+        set of weights."""
         ctx = as_context(ctx, gpu(0))
         ctx.torch_device()  # raises here when the card is missing
         arg_names = symbol.list_arguments()
@@ -130,6 +135,17 @@ class Executor:
                      for n in arg_names if req[n] != "null"}
         aux_dict = {n: zeros(var_shape[n], ctx, var_dtype[n])
                     for n in aux_names}
+        if shared_exec is not None:
+            for n in arg_names:
+                src = shared_exec.arg_dict.get(n)
+                if src is not None and src.shape == arg_dict[n].shape:
+                    arg_dict[n] = src
+                    if n in shared_exec.grad_dict and n in grad_dict:
+                        grad_dict[n] = shared_exec.grad_dict[n]
+            for n in aux_names:
+                src = shared_exec.aux_dict.get(n)
+                if src is not None and src.shape == aux_dict[n].shape:
+                    aux_dict[n] = src
         return Executor(symbol, ctx, arg_dict, grad_dict, req, aux_dict)
 
     def _walk(self, is_train, leaves):

@@ -21,7 +21,7 @@ import torch
 from .base import Registry
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "create", "seed", "registry"]
+           "Constant", "Xavier", "FusedRNN", "create", "seed", "registry"]
 
 registry = Registry("initializer")
 
@@ -159,6 +159,64 @@ class Xavier(Initializer):
         else:
             t.normal_(0.0, scale, generator=self.generator)
         arr[:] = t
+
+
+@registry.register
+class FusedRNN(Initializer):
+    """Initialize a fused RNN parameter blob: unpack it with the cell's own
+    layout, give each weight matrix ``init`` (else the surrounding global
+    initializer, else ``Uniform(0.07)``), each bias zero and each LSTM
+    forget-gate bias ``forget_bias``, and pack it back."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0, generator=None):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = registry.create(klass, generator=generator, **kwargs)
+        super().__init__(generator,
+                         init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn.rnn_cell import FusedRNNCell
+
+        global_init = getattr(desc, "global_init", None)
+        inner = self._init
+        if inner is None:
+            # the surrounding global initializer; if that is itself a
+            # FusedRNN, its inner one (a piece must not be unpacked again)
+            fallback = global_init
+            while isinstance(fallback, FusedRNN):
+                fallback = fallback._init
+            inner = fallback or Uniform(0.07)
+        cell = FusedRNNCell(self._num_hidden, num_layers=self._num_layers,
+                            mode=self._mode,
+                            bidirectional=self._bidirectional,
+                            forget_bias=self._forget_bias, prefix="")
+        args = cell.unpack_weights({"parameters": arr})
+        h = self._num_hidden
+        for name, value in args.items():
+            # a fresh desc per piece: dispatch by the piece's name, no
+            # __init__ attr, so no recursion
+            piece = InitDesc(name, global_init=global_init)
+            if name.endswith("weight"):
+                if hasattr(inner, "_init_weight"):
+                    inner._init_weight(piece, value)
+                else:
+                    inner(piece, value)
+            else:
+                value[:] = 0.0
+                if self._mode == "lstm":
+                    value[h:2 * h] = self._forget_bias
+        arr[:] = cell.pack_weights(args)["parameters"]
 
 
 def create(name, **kwargs):

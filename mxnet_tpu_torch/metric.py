@@ -1,10 +1,10 @@
 """Evaluation metrics (``mx.metric``), counterpart of
 ``mxnet_tpu/metric.py``: the host path of :class:`EvalMetric`,
 :class:`CompositeEvalMetric`, :class:`Accuracy`, :class:`TopKAccuracy`,
-:class:`CrossEntropy` and :func:`create`.  Each ``update`` copies the
-batch's labels and predictions to the host (one small device-to-host copy
-per batch) and accumulates Python floats, as the JAX package's host path
-does.
+:class:`CrossEntropy`, :class:`Perplexity` and :func:`create`.  Each
+``update`` copies the batch's labels and predictions to the host (one
+device-to-host copy per batch) and accumulates Python floats, as the JAX
+package's host path does.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from .base import Registry
 from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "create", "check_label_shapes"]
+           "CrossEntropy", "Perplexity", "create", "check_label_shapes"]
 
 registry = Registry("metric")
 
@@ -166,6 +166,39 @@ class CrossEntropy(EvalMetric):
             prob = pred[_np.arange(label.shape[0]), _np.int64(label)]
             self.sum_metric += float((-_np.log(prob + self.eps)).sum())
             self.num_inst += label.shape[0]
+
+
+@registry.register
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-likelihood of the labels, tokens equal
+    to ``ignore_label`` left out.  Like the JAX package, ``get`` returns
+    the token-weighted mean of the per-batch perplexities."""
+
+    def __init__(self, ignore_label=None, axis=-1):
+        super().__init__("Perplexity")
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = _as_np(label)
+            pred = _as_np(pred)
+            assert label.size == pred.size / pred.shape[-1], \
+                "shape mismatch: %s vs. %s" % (label.shape, pred.shape)
+            label = label.reshape((label.size,)).astype("int32")
+            probs = pred.reshape(-1, pred.shape[-1])[
+                _np.arange(label.size), label]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label).astype(probs.dtype)
+                num -= int(ignore.sum())
+                probs = probs * (1 - ignore) + ignore
+            loss -= float(_np.sum(_np.log(_np.maximum(1e-10, probs))))
+            num += label.size
+        self.sum_metric += float(_np.exp(loss / num)) * num
+        self.num_inst += num
 
 
 def create(metric, **kwargs):

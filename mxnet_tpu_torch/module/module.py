@@ -7,8 +7,12 @@ tests pass ``context=mx.cpu()``.  ``init_optimizer`` sets
 ``rescale_grad = 1 / batch_size``.  With plain SGD the update is one
 multi-tensor step over every parameter (the JAX package's fused update
 path); other optimizers go through the per-parameter :class:`Updater`.
-Multi-device contexts, meshes, shared modules and the fused single-step
-``MXNET_FUSE_TRAIN_STEP``/``run_bulk`` paths are not ported yet.
+``bind(shared_module=...)`` shares the parameters and their gradient
+arrays with another module by NDArray identity, and
+``borrow_optimizer`` its optimizer, updater and update states, as
+``BucketingModule`` needs.  Multi-device contexts, meshes and the fused
+single-step ``MXNET_FUSE_TRAIN_STEP``/``run_bulk`` paths are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -107,8 +111,6 @@ class Module(BaseModule):
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        if shared_module is not None:
-            raise MXNetError("bind(shared_module=...) is not ported yet")
         saved = None
         if force_rebind:
             if self._exec is not None and self.params_initialized:
@@ -135,8 +137,11 @@ class Module(BaseModule):
                 req[n] = "null"
         self._exec = Executor.simple_bind(
             self._symbol, self._context[0], grad_req=req,
-            **dict(self._data_shapes + self._label_shapes))
+            shared_exec=shared_module._exec if shared_module is not None
+            else None, **dict(self._data_shapes + self._label_shapes))
         self.binded = True
+        if shared_module is not None and shared_module.params_initialized:
+            self.params_initialized = True
         if saved is not None:
             self.set_params(*saved, force_init=True)
 
@@ -192,6 +197,16 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, kvstore and updater (with its
+        per-index states): the buckets of a ``BucketingModule`` take one
+        update schedule."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._updater = shared_module._updater
         self.optimizer_initialized = True
 
     # -- compute ----------------------------------------------------------

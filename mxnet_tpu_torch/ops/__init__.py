@@ -1,4 +1,4 @@
-"""Operator registry and the ops of the served path.  Importing this
+"""Operator registry and the ported ops.  Importing this
 package registers every op; ``mx.sym`` is generated from the registry."""
 
 from . import registry
@@ -12,6 +12,7 @@ from . import indexing  # noqa: F401
 from . import nn  # noqa: F401
 from . import loss  # noqa: F401
 from . import attention  # noqa: F401
+from . import rnn  # noqa: F401
 from . import infer  # noqa: F401  (attaches backward shape rules)
 
 __all__ = ["registry", "OpDef", "get", "list_ops", "register"]

@@ -1,7 +1,8 @@
 """Backward (argument) shape inference rules, the part of
 ``mxnet_tpu/ops/infer.py`` the served and training paths need:
-``simple_bind`` sizes weights, BatchNorm's gamma/beta/moving stats and
-``softmax_label`` from the data shape alone through them.  Pooling has no
+``simple_bind`` sizes weights, BatchNorm's gamma/beta/moving stats, the
+RNN op's parameter blob and states, and ``softmax_label`` from the data
+shape alone through them.  Pooling has no
 parameters, so its output shape comes from the ``meta`` run alone.
 
 Each rule: ``(attrs, in_shapes, in_dtypes, aux_shapes) -> (in_shapes,
@@ -63,6 +64,29 @@ def _bn(attrs, ins, dts, auxs):
 def _emb(attrs, ins, dts, auxs):
     if ins[1] is None:
         ins[1] = (attrs["input_dim"], attrs["output_dim"])
+    return ins, auxs
+
+
+@rule("RNN")
+def _rnn_infer(attrs, ins, dts, auxs):
+    """The ``parameters`` blob's length from the data's feature width
+    (like FullyConnected's weight); ``state`` and ``state_cell`` are
+    (layers x directions, N, H) for time-major (T, N, C) data.
+    ``_rnn_begin_state`` needs no rule: its one input is the data, and its
+    output shape comes from the ``meta`` run."""
+    from .rnn import rnn_param_size
+
+    data = ins[0]
+    if data is not None:
+        h = attrs["state_size"]
+        d = 2 if attrs["bidirectional"] else 1
+        n_states = attrs["num_layers"] * d
+        if ins[1] is None:
+            ins[1] = (rnn_param_size(data[2], h, attrs["num_layers"],
+                                     attrs["mode"], attrs["bidirectional"]),)
+        for i in range(2, len(ins)):
+            if ins[i] is None:
+                ins[i] = (n_states, data[1], h)
     return ins, auxs
 
 

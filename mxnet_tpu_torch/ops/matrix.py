@@ -1,11 +1,10 @@
-"""Shape ops on the served path (counterpart of
-``mxnet_tpu/ops/matrix.py``): ``Reshape`` with MXNet's special codes, and
-``Flatten``."""
+"""Shape ops (counterpart of ``mxnet_tpu/ops/matrix.py``): ``Reshape``
+with MXNet's special codes, ``Flatten`` and ``SwapAxis``."""
 
 from __future__ import annotations
 
 from ..base import MXNetError
-from .registry import pbool, ptuple, simple
+from .registry import pbool, pint, ptuple, simple
 
 simple("Flatten", lambda data: data.reshape(data.shape[0], -1),
        aliases=("flatten",))
@@ -67,3 +66,6 @@ simple("Reshape", _reshape,
        params={"shape": (ptuple, ()), "target_shape": (ptuple, ()),
                "keep_highest": (pbool, False), "reverse": (pbool, False)},
        aliases=("reshape",))
+
+simple("SwapAxis", lambda data, dim1, dim2: data.transpose(dim1, dim2),
+       params={"dim1": (pint, 0), "dim2": (pint, 0)}, aliases=("swapaxes",))

@@ -1,5 +1,6 @@
 """Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``): ``FullyConnected``,
-``Activation``, ``Convolution``, ``Pooling`` and ``BatchNorm``.
+``Activation``, ``Convolution``, ``Pooling``, ``BatchNorm``, ``Dropout``
+and ``SliceChannel``.
 
 FullyConnected, Activation, Convolution and Pooling are plain ``torch``
 calls in f32: the JAX package leaves them to XLA, outside any Pallas
@@ -208,3 +209,30 @@ register("BatchNorm", _batch_norm,
                  "use_global_stats": (pbool, False),
                  "output_mean_var": (pbool, False)},
          aliases=("CuDNNBatchNorm",), hint="batchnorm", updates_aux=True)
+
+
+def _dropout(attrs, inputs, aux, is_train):
+    """Inverted dropout in training; the identity otherwise.  The mask
+    comes from torch's generator, so it never matches the JAX package's
+    (threefry) mask: compare the two only at ``p=0`` or in inference."""
+    x = inputs[0]
+    if not is_train or attrs["p"] <= 0.0:
+        return [x]
+    return [F.dropout(x, p=attrs["p"], training=True)]
+
+
+register("Dropout", _dropout, params={"p": (pfloat, 0.5)}, hint="dropout")
+
+
+def _slice_channel(attrs, inputs, aux, is_train):
+    parts = torch.chunk(inputs[0], attrs["num_outputs"], dim=attrs["axis"])
+    if attrs["squeeze_axis"]:
+        parts = [p.squeeze(attrs["axis"]) for p in parts]
+    return list(parts)
+
+
+register("SliceChannel", _slice_channel,
+         outputs=lambda a: ["output%d" % i for i in range(a["num_outputs"])],
+         params={"num_outputs": (pint, REQUIRED), "axis": (pint, 1),
+                 "squeeze_axis": (pbool, False)},
+         aliases=("split",), hint="slicechannel")

@@ -319,13 +319,17 @@ class Symbol:
     __radd__ = __add__
 
 
-def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
-    """A graph input; ``shape`` is recorded as the ``__shape__`` attr."""
+def Variable(name, attr=None, shape=None, dtype=None, init=None, **kwargs):
+    """A graph input; ``shape``, ``dtype`` and ``init`` (an initializer, or
+    its JSON ``dumps()``) are recorded as the ``__shape__``, ``__dtype__``
+    and ``__init__`` attrs."""
     misc = AttrScope.current().get(attr)
     if shape is not None:
         misc["__shape__"] = str(tuple(shape))
     if dtype is not None:
         misc["__dtype__"] = str(dtype)
+    if init is not None:
+        misc["__init__"] = init if isinstance(init, str) else init.dumps()
     misc.update({k: str(v) for k, v in kwargs.items()})
     return Symbol([(_Node(None, name, {}, [], misc), 0)])
 

@@ -8,8 +8,10 @@ that has only PyTorch; there, from the repository root:
 Without a card each test skips inside the ``cuda_device`` fixture.  Each
 kernel is held against its plain version with TF32 off for both; the sums
 run in another order, hence ``rtol=atol=1e-4`` for flash attention (K3),
-and for BatchNorm (K1/K2) a max error of ``1e-4`` relative to the largest
-magnitude of each output (its per-channel sums span up to 6.4 M terms).
+for BatchNorm (K1/K2) a max error of ``1e-4`` relative to the largest
+magnitude of each output (its per-channel sums span up to 6.4 M terms),
+and for the LSTM kernels ``1e-5`` (K4/K5) and ``1e-4`` (K6) of each
+output's largest magnitude (the error compounds over up to 60 steps).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import bn_kernel
+from mxnet_tpu_torch.ops import rnn_kernel
 
 
 @pytest.fixture
@@ -239,3 +242,139 @@ def test_resnet50_step_launches_k1_and_k2_51_times(cuda_device):
     for k in caux:
         np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+
+
+# -- LSTM kernels K4, K5, K6 --------------------------------------------------
+def _assert_rel(got, want, tol):
+    """Max error within ``tol`` of the largest magnitude of ``want``."""
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= tol * (top if top > 0 else 1.0), (err, top)
+
+
+def _lstm_inputs(T, N, H, seed, device):
+    rs = np.random.RandomState(seed)
+
+    def draw(shape, scale):
+        return torch.from_numpy((rs.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device)
+
+    return (draw((T, 4, N, H), 0.5), draw((4, H, H), 1 / np.sqrt(H)),
+            draw((4, H), 0.1), draw((N, H), 0.5), draw((N, H), 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,N,H", [(5, 3, 20), (7, 5, 33), (10, 32, 200),
+                                   (60, 32, 200)])
+def test_lstm_kernels_match_plain(cuda_device, T, N, H):
+    """K4, K5 and K6 against their plain versions on the same inputs:
+    forward within 1e-5 and backward within 1e-4 of each output's largest
+    magnitude (f32 sums in another order, compounded over T steps); K6's
+    dw4 and dbh repeat bit for bit."""
+    xp, w4, bh, h0, c0 = _lstm_inputs(T, N, H, 3, cuda_device)
+    before = (rnn_kernel.lstm_infer_cuda.launches,
+              rnn_kernel.lstm_fwd_cuda.launches,
+              rnn_kernel.lstm_bwd_cuda.launches)
+    ys4, hT4, cT4 = rnn_kernel.lstm_infer_cuda(xp, w4, bh, h0, c0)
+    fwd = rnn_kernel.lstm_fwd_cuda(xp, w4, bh, h0, c0)
+    torch.cuda.synchronize()
+    want = rnn_kernel.lstm_fwd_plain(xp, w4, bh, h0, c0)
+    for got, ref in zip(fwd, want):
+        _assert_rel(got, ref, 1e-5)
+    for got, ref in zip((ys4, hT4, cT4), (want[0], want[3], want[4])):
+        _assert_rel(got, ref, 1e-5)
+    ys, gates, cs = fwd[:3]
+    rs = np.random.RandomState(4)
+    dys, dhT, dcT = [torch.from_numpy(rs.standard_normal(s).astype(
+        np.float32)).to(cuda_device) for s in ((T, N, H), (N, H), (N, H))]
+    got = rnn_kernel.lstm_bwd_cuda(gates, cs, ys, w4, h0, c0, dys, dhT, dcT)
+    torch.cuda.synchronize()
+    ref = rnn_kernel.lstm_bwd_plain(gates, cs, ys, w4, h0, c0, dys, dhT, dcT)
+    for g, r in zip(got, ref):
+        _assert_rel(g, r, 1e-4)
+    again = rnn_kernel.lstm_bwd_cuda(gates, cs, ys, w4, h0, c0, dys, dhT,
+                                     dcT)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert (rnn_kernel.lstm_infer_cuda.launches,
+            rnn_kernel.lstm_fwd_cuda.launches,
+            rnn_kernel.lstm_bwd_cuda.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_lstm_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    xp, w4, bh, h0, c0 = _lstm_inputs(4, 3, 8, 0, cuda_device)
+    with pytest.raises(mx.MXNetError, match="float32"):
+        rnn_kernel.lstm_infer_cuda(xp.to(torch.bfloat16), w4, bh, h0, c0)
+    with pytest.raises(mx.MXNetError, match="contiguous"):
+        rnn_kernel.lstm_fwd_cuda(xp, w4.transpose(1, 2), bh, h0, c0)
+    with pytest.raises(mx.MXNetError, match="cpu"):
+        rnn_kernel.lstm_fwd_cuda(xp, w4, bh, h0.cpu(), c0)
+    with pytest.raises(mx.MXNetError, match="shape"):
+        rnn_kernel.lstm_infer_cuda(xp, w4, bh[:3], h0, c0)
+    ys, gates, cs, _h, _c = rnn_kernel.lstm_fwd_cuda(xp, w4, bh, h0, c0)
+    with pytest.raises(mx.MXNetError, match="contiguous"):
+        rnn_kernel.lstm_bwd_cuda(gates, cs, ys, w4, h0, c0,
+                                 ys.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), h0, c0)
+    # the limits live in the kernel source, which sizes the work space
+    lib = _kernels.load("lstm")
+    assert rnn_kernel._work(lib, 60, 32, 200, True, cuda_device).numel() \
+        == 4 * 200 * 200
+    assert rnn_kernel._work(lib, 60, 32, 200, False, cuda_device).numel() \
+        == 0
+    with pytest.raises(mx.MXNetError, match="does not take"):
+        rnn_kernel._work(lib, 4, 3, 1025, False, cuda_device)
+    with pytest.raises(mx.MXNetError, match="does not take"):
+        rnn_kernel._work(lib, 2 ** 12, 2 ** 9, 256, True, cuda_device)
+
+
+@pytest.mark.cuda
+def test_bucketing_step_launches_k5_k6_per_layer_and_k4_on_eval(
+        cuda_device):
+    """One BucketingModule training step of a small 2-layer LSTM LM on the
+    card launches K5 and K6 once per layer (2 + 2), an eval forward K4
+    twice; the step and the eval output match the same on the CPU
+    (``rtol=1e-4``; the atol is 1e-5 of each update's largest
+    magnitude)."""
+    import random
+
+    from mxnet_tpu_torch.models import lstm_lm
+
+    def run(ctx):
+        random.seed(0)
+        np.random.seed(0)
+        it = mx.rnn.BucketSentenceIter(
+            lstm_lm.synth_corpus(40, 50, buckets=(5, 10)), 4,
+            buckets=[5, 10], invalid_label=0, layout="TN")
+        mod = mx.mod.BucketingModule(
+            lstm_lm.make_sym_gen(lstm_lm.build_cell(16, 2), 50, 16, 16),
+            default_bucket_key=10, context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        mx.init.seed(0)
+        mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+        before = mx.convert.module_params_to_numpy(mod)[0]
+        mod.init_optimizer(optimizer_params={"learning_rate": 0.5})
+        batch = next(it)
+        counts = [rnn_kernel.lstm_infer_cuda, rnn_kernel.lstm_fwd_cuda,
+                  rnn_kernel.lstm_bwd_cuda]
+        for c in counts:
+            c.launches = 0
+        mod.forward_backward(batch)
+        mod.update()
+        step = [c.launches for c in counts]
+        mod.forward(batch, is_train=False)
+        out = mod.get_outputs()[0].asnumpy()
+        after = mx.convert.module_params_to_numpy(mod)[0]
+        return ({k: after[k] - before[k] for k in after}, out, step,
+                [c.launches for c in counts])
+
+    gu, gout, gstep, gall = run(mx.gpu(0))
+    cu, cout, cstep, call = run(mx.cpu())
+    assert (gstep, gall) == ([0, 2, 2], [2, 2, 2])
+    assert (cstep, call) == ([0, 0, 0], [0, 0, 0])
+    for k in cu:
+        np.testing.assert_allclose(gu[k], cu[k], rtol=1e-4,
+                                   atol=1e-5 * np.abs(cu[k]).max(),
+                                   err_msg=k)
+    np.testing.assert_allclose(gout, cout, rtol=1e-4, atol=1e-6)
