@@ -8,11 +8,14 @@
    (one ``nvcc`` per source, all started together).
 3. Kernel phase: flash attention (K3) at B in {1, 4}, H=8, L=2048, D=128,
    f32, causal and not, held against its plain PyTorch version on the card
-   (TF32 off for both; ``atol=rtol=1e-4`` on out and lse, the sums run in
+   (TF32 off for the plain version; the kernel's 3xTF32 products keep
+   f32 accuracy; ``atol=rtol=1e-4`` on out and lse, the sums run in
    another order) and timed with CUDA events beside the plain version,
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   and the least time the card could take (the larger of the operations
-   over the 67 TFLOP/s f32 peak and the bytes over 3.35 TB/s).
+   and the least time the card could take (the larger of three times the
+   operations over the 495 TFLOP/s TF32 peak, since 3xTF32 takes three
+   products per product, and the bytes over 3.35 TB/s; the f32
+   CUDA-core figure is printed beside it).
 4. BatchNorm kernel phase: at every distinct BatchNorm input of the
    ResNet-50 b128 training step (shape, fix_gamma, fused ReLU), K1 and K2
    held against their plain versions (max error within ``1e-4`` of each
@@ -31,7 +34,7 @@
    LSTM (``torch.nn.LSTM``, one layer, a yardstick the port never calls;
    it includes the input projection, whose matmuls are printed beside
    the kernel) and the bound (the larger of the products over 67 TFLOP/s
-   and the bytes over 3.35 TB/s).
+   and the bytes over 3.35 TB/s); K6's cluster layout is printed.
 6. Serving phase: ``build_lm`` at vocab 32000, embed 1024, 8 heads of 128,
    seq 2048, FFN 2048, f32, buckets (1, 4), weights drawn from ``--seed``,
    published with ``save_model`` and loaded with ``ModelRegistry().load_dir``
@@ -136,11 +139,13 @@ def _time_ms(fn, iters, warmup=2):
 def _attention_bound(b, h, lq, lk, d, causal):
     """(bound_ms, bound_by, flops): the two products need 4*D operations
     per (query, key) pair this data attends; q, k, v read once, out and
-    lse written once."""
+    lse written once.  K3 keeps f32 accuracy on the tensor cores with
+    three TF32 products per product (3xTF32), so the operations count
+    three times over the 495 TFLOP/s TF32 peak."""
     pairs = lq * (lq + 1) // 2 if causal else lq * lk
     flops = 4.0 * b * h * d * pairs
     nbytes = 4.0 * b * h * (lq * d + 2 * lk * d + lq * d + lq)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations", flops
     return t_bytes * 1e3, "bytes", flops
@@ -176,13 +181,13 @@ def kernel_phase(att, dev, seed):
                                      plain_ms=plain_ms, library_ms=lib_ms,
                                      bound_ms=bound_ms, bound_by=bound_by)
             print("kernel flash_attention B=%d H=%d L=%d D=128 causal=%s: "
-                  "max_abs_err %.3g, kernel %.4f ms (%.1f TFLOP/s f32), "
-                  "plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s; the "
-                  "kernel is held to the f32 non-tensor peak of 67 "
-                  "TFLOP/s, the TF32 tensor-core bound would be %.4f ms)"
+                  "max_abs_err %.3g, kernel %.4f ms (%.1f TFLOP/s of f32 "
+                  "work, %.0f%% of the bound), plain %.4f ms, sdpa %.4f "
+                  "ms, bound %.4f ms (%s, 3xTF32 at 495 TFLOP/s; on the "
+                  "CUDA cores at 67 TFLOP/s f32 it would be %.4f ms)"
                   % (b, HEADS, SEQ, causal, err, ms, flops / ms / 1e9,
-                     plain_ms, lib_ms, bound_ms, bound_by,
-                     flops / PEAK_TF32_FLOPS * 1e3), flush=True)
+                     100 * bound_ms / ms, plain_ms, lib_ms, bound_ms,
+                     bound_by, flops / PEAK_F32_FLOPS * 1e3), flush=True)
             del q, k, v, out, lse, pout, plse
     return rows
 
@@ -937,6 +942,8 @@ def lstm_kernel_phase(rk, dev, seed):
                               lib[name], bound_ms, bound_by,
                               ms * 1e3 / T), flush=True)
         del lstm, out, hn, cn, xg, leaves
+    print("kernel lstm K6 layout at N=%d H=%d: %s" % (
+        n, h, rk.lstm_bwd_plan(n, h, dev)), flush=True)
     torch.cuda.empty_cache()
     return rows
 

@@ -5,8 +5,9 @@ PyTorch version), counterpart of ``mxnet_tpu/ops/attention.py``.
   in torch f32, the counterpart of ``_flash_scan``.  Taken for CPU tensors.
 * :func:`flash_attention_cuda` — the wrapper of kernel K3
   (``csrc/flash_attention.cu``), which replaces the TPU kernel
-  ``mxnet_tpu/ops/attention.py::_fa_kernel``; the source says what bounds
-  it and how the design meets that.  Taken for CUDA tensors: it launches
+  ``mxnet_tpu/ops/attention.py::_fa_kernel``: 3xTF32 on the tensor cores
+  (``mma.sync``), f32-accurate; the source says what bounds it and how
+  the design meets that.  Taken for CUDA tensors: it launches
   the kernel or raises.  ``flash_attention_cuda.launches`` counts the
   launches.
 * :func:`flash_attention_with_lse` / :func:`flash_attention` — the public
@@ -82,8 +83,6 @@ def _check_cuda_inputs(q, k, v):
     if not 1 <= d <= MAX_HEAD_DIM:
         raise MXNetError("flash attention kernel takes head_dim <= %d, got %d"
                          % (MAX_HEAD_DIM, d))
-    if b * h > 65535:
-        raise MXNetError("flash attention kernel takes batch*heads <= 65535")
 
 
 def _vector_ok(t):

@@ -33,8 +33,8 @@ from .. import _kernels
 from ..base import MXNetError
 
 __all__ = ["lstm_infer_plain", "lstm_fwd_plain", "lstm_bwd_plain",
-           "lstm_infer_cuda", "lstm_fwd_cuda", "lstm_bwd_cuda", "LSTMSeqFn",
-           "lstm_seq"]
+           "lstm_infer_cuda", "lstm_fwd_cuda", "lstm_bwd_cuda",
+           "lstm_bwd_plan", "LSTMSeqFn", "lstm_seq"]
 
 
 # -- the plain versions -------------------------------------------------------
@@ -196,8 +196,9 @@ def lstm_fwd_cuda(xp, w4, bh, h0, c0):
 
 
 def lstm_bwd_cuda(gates, cs, ys, w4, h0, c0, dys, dhT, dcT):
-    """Launch kernel K6 on gates' card, on the current stream (three CUDA
-    kernels: the w4 transpose, the recurrence, the dw4/dbh product).
+    """Launch kernel K6 on gates' card, on the current stream (the
+    clustered recurrence, then the dw4/dbh product and, where its T*N axis
+    is split, the fixed-order sum of the partial products).
     Returns ``(dxp, dw4, dbh, dh0, dc0)``; raises on inputs the kernel
     does not take."""
     T, N, H = _dims(gates)
@@ -218,6 +219,24 @@ def lstm_bwd_cuda(gates, cs, ys, w4, h0, c0, dys, dhT, dcT):
              dc0, work), (T, N, H), gates.device)
     lstm_bwd_cuda.launches += 1
     return dxp, dw4, dbh, dh0, dc0
+
+
+def lstm_bwd_plan(N, H, device):
+    """How K6 lays out its recurrence for batch ``N`` and width ``H`` on
+    ``device``: rows per cluster pass, slice width, rows of w4 per slice
+    kept in shared memory, clusters launched, shared memory per CTA."""
+    fn = _kernels.load("lstm").mxtt_lstm_bwd_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(device):
+        err = fn(N, H, out)
+    if err != 0:
+        raise MXNetError("LSTM backward plan failed: CUDA error %d" % err)
+    return dict(zip(("rows", "slice", "w4_rows_in_smem", "clusters",
+                     "smem_bytes"), out))
 
 
 #: launches of kernels K4, K5 and K6 in this process (reset freely)

@@ -117,3 +117,73 @@ def test_meta_tensors_give_shapes_only():
     out, lse = tatt.flash_attention_with_lse(q, k, k)
     assert out.shape == (2, 3, 5, 8) and lse.shape == (2, 3, 5)
     assert lse.dtype == torch.float32
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` in torch: round an f32 to the nearest TF32
+    (ties away from zero), then mask off the low 13 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rz(x):
+    """What the tensor cores read of an f32 passed as .tf32: the low 13
+    mantissa bits masked off (round toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """``a @ b`` as the tensor cores take it: one TF32 product, or the
+    3xTF32 split of kernel K3 (big*small + small*big + big*big, f32 sums;
+    big rounded to nearest, the remainder truncated)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    asm, bsm = _tf32_rz(a - ab), _tf32_rz(b - bb)
+    return ab @ bsm + asm @ bb + ab @ bb
+
+
+def _tf32_attention(q, k, v, scale, qk_passes, pv_passes):
+    """Causal attention with Q K^T and P V emulated in TF32 (1 or 3
+    passes each), softmax and its sums in f32 as in the kernel."""
+    s = _tf32_matmul(q, k.transpose(-1, -2), qk_passes) * scale
+    lq, lk = s.shape[-2:]
+    mask = torch.arange(lq)[:, None] >= torch.arange(lk)[None]
+    s = torch.where(mask, s, torch.tensor(-1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return _tf32_matmul(p, v, pv_passes) / l, (m + torch.log(l))[..., 0]
+
+
+def _tf32_attention_f64(q, k, v, scale):
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    lq, lk = s.shape[-2:]
+    mask = torch.arange(lq)[:, None] >= torch.arange(lk)[None]
+    s = torch.where(mask, s, torch.tensor(-1e30, dtype=torch.float64))
+    return torch.matmul(torch.softmax(s, -1), v.double()), \
+        torch.logsumexp(s, -1)
+
+
+def test_tf32_split_meets_the_kernel_tolerance():
+    """Why K3 takes three TF32 products per product: at the served shape
+    (L=2048, D=128, causal) the 3xTF32 split of both Q K^T and P V stays
+    within the kernel's ``atol=rtol=1e-4`` of a float64 reference, and
+    every cheaper choice (one TF32 pass for either product or both) does
+    not; each one's error is printed."""
+    b, h, L, d = 1, 2, 2048, 128
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, L, L, d, seed=5))
+    scale = 1.0 / np.sqrt(d)
+    ref, ref_lse = _tf32_attention_f64(q, k, v, scale)
+    over = {}  # largest |err| - (1e-4 + 1e-4 |ref|): <= 0 within tolerance
+    for passes in ((3, 3), (3, 1), (1, 3), (1, 1)):
+        out, lse = _tf32_attention(q, k, v, scale, *passes)
+        err_o = (out.double() - ref).abs()
+        err_l = (lse.double() - ref_lse).abs()
+        over[passes] = max(
+            (err_o - 1e-4 - 1e-4 * ref.abs()).max().item(),
+            (err_l - 1e-4 - 1e-4 * ref_lse.abs()).max().item())
+        print("TF32 passes (QK^T, PV) = %s: max |err| out %.3g, lse %.3g"
+              % (passes, err_o.max().item(), err_l.max().item()))
+    assert over[(3, 3)] <= 0
+    assert all(over[p] > 0 for p in ((3, 1), (1, 3), (1, 1)))

@@ -6,8 +6,10 @@ that has only PyTorch; there, from the repository root:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Without a card each test skips inside the ``cuda_device`` fixture.  Each
-kernel is held against its plain version with TF32 off for both; the sums
-run in another order, hence ``rtol=atol=1e-4`` for flash attention (K3),
+kernel is held against its plain version with TF32 off for the plain
+version (K3 keeps f32 accuracy on the tensor cores with three TF32
+products per product); the sums run in another order, hence
+``rtol=atol=1e-4`` for flash attention (K3),
 for BatchNorm (K1/K2) a max error of ``1e-4`` relative to the largest
 magnitude of each output (its per-channel sums span up to 6.4 M terms),
 and for the LSTM kernels ``1e-5`` (K4/K5) and ``1e-4`` (K6) of each
@@ -44,8 +46,13 @@ def _qkv(b, h, lq, lk, d, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("lq,lk,d", [(128, 128, 128), (100, 70, 64),
-                                     (48, 48, 20), (64, 200, 128)])
+@pytest.mark.parametrize("lq,lk,d", [
+    (128, 128, 128), (100, 70, 64), (48, 48, 20), (64, 200, 128),
+    # one below and one above K3's tiles (128 query rows, 64 keys), Lq !=
+    # Lk, head dims that fill part of an 8-wide step, D % 4 != 0 (the
+    # 4-byte copy path)
+    (127, 63, 128), (129, 65, 64), (128, 129, 20), (65, 200, 33),
+    (200, 65, 33), (1, 1, 128)])
 def test_kernel_matches_plain(cuda_device, causal, lq, lk, d):
     q, k, v = _qkv(2, 3, lq, lk, d, 5, cuda_device)
     before = tatt.flash_attention_cuda.launches
@@ -58,16 +65,38 @@ def test_kernel_matches_plain(cuda_device, causal, lq, lk, d):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_strided_heads(cuda_device):
+@pytest.mark.parametrize("length,d,offset", [(96, 32, 0), (150, 33, 0),
+                                             (150, 32, 1), (150, 128, 0)])
+def test_kernel_reads_strided_heads(cuda_device, length, d, offset):
     """(B, L, H, D) -> (B, H, L, D) views, as MultiHeadAttention passes
-    them: the kernel reads the strides, no copy."""
+    them: the kernel reads the strides, no copy.  Rows that are not
+    16-byte aligned (D = 33, or a view starting one float in) take the
+    4-byte copies, aligned ones the 16-byte copies."""
     rs = np.random.RandomState(2)
-    x = [torch.from_numpy(rs.normal(0, 1, (2, 96, 4, 32)).astype(np.float32))
-         .to(cuda_device).transpose(1, 2) for _ in range(3)]
-    out, lse = tatt.flash_attention_cuda(*x, True, 0.2)
-    pout, plse = tatt.flash_attention_plain(*x, True, 0.2)
+    x = [torch.from_numpy(rs.normal(0, 1, (2, length, 4, d + offset))
+                          .astype(np.float32)).to(cuda_device)
+         [..., offset:].transpose(1, 2) for _ in range(3)]
+    for causal in (True, False):
+        out, lse = tatt.flash_attention_cuda(*x, causal, 0.2)
+        pout, plse = tatt.flash_attention_plain(*x, causal, 0.2)
+        torch.testing.assert_close(out, pout, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_beyond_one_wave(cuda_device, causal):
+    """More CTAs than SMs (3 x 50 heads x 3 Q tiles = 450), so the
+    heaviest-first order wraps over several waves; the output repeats
+    bit for bit."""
+    q, k, v = _qkv(3, 50, 257, 257, 64, 9, cuda_device)
+    out, lse = tatt.flash_attention_cuda(q, k, v, causal, 0.125)
+    torch.cuda.synchronize()
+    pout, plse = tatt.flash_attention_plain(q, k, v, causal, 0.125)
     torch.testing.assert_close(out, pout, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lse, plse, rtol=1e-4, atol=1e-4)
+    again, _ = tatt.flash_attention_cuda(q, k, v, causal, 0.125)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -302,6 +331,32 @@ def test_lstm_kernels_match_plain(cuda_device, T, N, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,N,H", [(6, 200, 200), (5, 16, 512),
+                                   (4, 8, 1024), (3, 2, 9)])
+def test_lstm_bwd_across_clusters(cuda_device, T, N, H):
+    """K6 where its batch rows span several clusters (N = 200), where a
+    CTA's rows of w4 exceed its shared memory and stream from L2
+    (H = 512, 1024: w4 is 4 and 16 MB), and where H < 8 slices leave CTAs
+    idle (H = 9): within 1e-4 of each output's largest magnitude, and
+    every output bit for bit across launches."""
+    xp, w4, bh, h0, c0 = _lstm_inputs(T, N, H, 6, cuda_device)
+    # the saved tensors from the plain forward: K6 is under test here
+    ys, gates, cs = rnn_kernel.lstm_fwd_plain(xp, w4, bh, h0, c0)[:3]
+    rs = np.random.RandomState(7)
+    dys, dhT, dcT = [torch.from_numpy(rs.standard_normal(s).astype(
+        np.float32)).to(cuda_device) for s in ((T, N, H), (N, H), (N, H))]
+    args = (gates, cs, ys, w4, h0, c0, dys, dhT, dcT)
+    got = rnn_kernel.lstm_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    ref = rnn_kernel.lstm_bwd_plain(*args)
+    for g, r in zip(got, ref):
+        _assert_rel(g, r, 1e-4)
+    again = rnn_kernel.lstm_bwd_cuda(*args)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
 def test_lstm_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     xp, w4, bh, h0, c0 = _lstm_inputs(4, 3, 8, 0, cuda_device)
     with pytest.raises(mx.MXNetError, match="float32"):
@@ -319,8 +374,11 @@ def test_lstm_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
                                  .transpose(0, 1), h0, c0)
     # the limits live in the kernel source, which sizes the work space
     lib = _kernels.load("lstm")
+    # K6's dw4 product at T*N = 1920, H = 200 splits T*N in 9 chunks
     assert rnn_kernel._work(lib, 60, 32, 200, True, cuda_device).numel() \
-        == 4 * 200 * 200
+        == 9 * 4 * 201 * 200
+    assert rnn_kernel._work(lib, 60, 32, 1024, True, cuda_device).numel() \
+        == 0
     assert rnn_kernel._work(lib, 60, 32, 200, False, cuda_device).numel() \
         == 0
     with pytest.raises(mx.MXNetError, match="does not take"):
