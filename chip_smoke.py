@@ -34,7 +34,11 @@
    LSTM (``torch.nn.LSTM``, one layer, a yardstick the port never calls;
    it includes the input projection, whose matmuls are printed beside
    the kernel) and the bound (the larger of the products over 67 TFLOP/s
-   and the bytes over 3.35 TB/s); K6's cluster layout is printed.
+   and the bytes over 3.35 TB/s); K4/K5 and K6 repeat bit for bit across
+   two launches (K6: dw4 and dbh); the cluster layouts of K4/K5 and K6
+   are printed.  Then K4 and K5 at T=8, N=8, H=1024 (the widest H, where
+   the slices of w4 stream from L2) and K6 on K5's outputs, against the
+   plain versions with the same limits.
 6. Serving phase: ``build_lm`` at vocab 32000, embed 1024, 8 heads of 128,
    seq 2048, FFN 2048, f32, buckets (1, 4), weights drawn from ``--seed``,
    published with ``save_model`` and loaded with ``ModelRegistry().load_dir``
@@ -840,8 +844,8 @@ def _lstm_bound(T, N, H, kernel):
 def lstm_kernel_phase(rk, dev, seed):
     """K4, K5 and K6 against their plain versions at every bucket length,
     N=32, H=200: the forward outputs within ``1e-5`` and the backward's
-    within ``1e-4`` of each output's largest magnitude, dw4 and dbh bit
-    for bit across two K6 launches.  Timed beside the plain versions and,
+    within ``1e-4`` of each output's largest magnitude, K4's and K5's
+    outputs and K6's dw4 and dbh bit for bit across two launches.  Timed beside the plain versions and,
     as a yardstick the port never calls, cuDNN's LSTM (``torch.nn.LSTM``,
     one layer at the same shape; it includes the input projection, so the
     kernel is printed with that projection's matmuls beside it)."""
@@ -871,10 +875,15 @@ def lstm_kernel_phase(rk, dev, seed):
         torch.cuda.synchronize()
         want6 = rk.lstm_bwd_plain(*saved)
         again = rk.lstm_bwd_cuda(*saved)
+        again4, again5 = rk.lstm_infer_cuda(*args), rk.lstm_fwd_cuda(*args)
         torch.cuda.synchronize()
         if not (torch.equal(got6[1], again[1])
                 and torch.equal(got6[2], again[2])):
             raise RuntimeError("K6's dw4/dbh differ between two launches "
+                               "at T=%d" % T)
+        if not all(torch.equal(a, b) for a, b in zip(got4 + got5,
+                                                     again4 + again5)):
+            raise RuntimeError("K4/K5's outputs differ between two launches "
                                "at T=%d" % T)
         errs = {}
         for name, got, want, tol in (("K4", got4, want4, 1e-5),
@@ -942,10 +951,55 @@ def lstm_kernel_phase(rk, dev, seed):
                               lib[name], bound_ms, bound_by,
                               ms * 1e3 / T), flush=True)
         del lstm, out, hn, cn, xg, leaves
-    print("kernel lstm K6 layout at N=%d H=%d: %s" % (
-        n, h, rk.lstm_bwd_plan(n, h, dev)), flush=True)
+    print("kernel lstm K4/K5 layout at N=%d H=%d: %s; K6 layout: %s" % (
+        n, h, rk.lstm_fwd_plan(n, h, dev), rk.lstm_bwd_plan(n, h, dev)),
+        flush=True)
+    lstm_wide_check(rk, dev, seed)
     torch.cuda.empty_cache()
     return rows
+
+
+def lstm_wide_check(rk, dev, seed, T=8, n=8, h=1024):
+    """K4 and K5 at the widest H the kernels take, where a CTA's slice of
+    w4 streams from L2, then K6 on K5's own outputs: against the plain
+    versions (forward within ``1e-5``, backward within ``1e-4`` of each
+    output's largest magnitude), timed beside them."""
+    gen = torch.Generator(device=dev).manual_seed(seed + h)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    args = (draw(T, 4, n, h, scale=0.5), draw(4, h, h, scale=h ** -0.5),
+            draw(4, h, scale=0.1), draw(n, h, scale=0.5),
+            draw(n, h, scale=0.5))
+    got4 = rk.lstm_infer_cuda(*args)
+    got5 = rk.lstm_fwd_cuda(*args)
+    torch.cuda.synchronize()
+    want5 = rk.lstm_fwd_plain(*args)
+    saved = (got5[1], got5[2], got5[0], args[1], args[3], args[4],
+             draw(T, n, h), draw(n, h), draw(n, h))
+    got6 = rk.lstm_bwd_cuda(*saved)
+    torch.cuda.synchronize()
+    want6 = rk.lstm_bwd_plain(*saved)
+    report = []
+    for name, got, want, tol, call, plain in (
+            ("K4", got4, (want5[0], want5[3], want5[4]), 1e-5,
+             lambda: rk.lstm_infer_cuda(*args),
+             lambda: rk.lstm_infer_plain(*args)),
+            ("K5", got5, want5, 1e-5, lambda: rk.lstm_fwd_cuda(*args),
+             lambda: rk.lstm_fwd_plain(*args)),
+            ("K6", got6, want6, 1e-4, lambda: rk.lstm_bwd_cuda(*saved),
+             lambda: rk.lstm_bwd_plain(*saved))):
+        rel = max(_rel_err(g, w) for g, w in zip(got, want))
+        if not rel <= tol:
+            raise RuntimeError("%s disagrees with its plain version at T=%d "
+                               "N=%d H=%d: %.3g of the output's magnitude "
+                               "(limit %g)" % (name, T, n, h, rel, tol))
+        report.append("%s %.2g of the magnitude, %.4f ms (plain %.4f)" % (
+            name, rel, _time_ms(call, 10), _time_ms(plain, 3, warmup=1)))
+    print("kernel lstm T=%d N=%d H=%d (K6 on K5's outputs): %s; K4/K5 "
+          "layout %s" % (T, n, h, "; ".join(report),
+                         rk.lstm_fwd_plan(n, h, dev)), flush=True)
 
 
 @contextlib.contextmanager

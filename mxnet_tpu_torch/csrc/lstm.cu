@@ -23,19 +23,32 @@
 // the 67 TFLOP/s f32 CUDA-core peak); each step needs the whole previous
 // h, so the steps cannot overlap.
 //
-// K4 and K5 (simple first; the cluster design of K6 is their next step):
-//   * w4 (640 KB at H = 200) does not fit a block's 227 KB of shared
-//     memory, but batch rows of an LSTM never interact.  So one block owns
-//     ROWS whole batch rows for the whole sequence (grid = N / ROWS
-//     blocks, no communication between blocks).  Its h and c live in
-//     shared memory (h double-buffered, one __syncthreads per step), and
-//     w4 streams from L2 every step (it fits the 50 MB L2 many times).
-//   * Thread j owns output column j of every gate and every row of the
-//     block, so the four gates of (row, j) meet in its registers and the
-//     cell update needs no exchange.  w4[k][i][j] is read along j by
-//     neighbouring threads (coalesced); h[r][i] is a shared-memory
-//     broadcast.  H = 200 is ragged for warps: blockDim is H rounded up
-//     to 32, threads past H idle.
+// K4 and K5, a persistent recurrence on thread-block clusters:
+//   * A cluster of CL = 8 CTAs keeps w4 in shared memory, split by the
+//     output column j: CTA r owns the columns S = [r*Sz, (r+1)*Sz) of all
+//     four gates and holds w4[k][:, S] for k = 0..3 (80 KB at H = 200),
+//     the four gates of one (i, j) in one float4.  Where a slice does not
+//     fit (H above ~400), its first Sw rows i live in shared memory and
+//     the rest stream from L2 in the same step.
+//   * Every CTA keeps h, all H columns, of the cluster's R batch rows in
+//     an exchange buffer [2][R][H], double-buffered by step parity.  Per
+//     step it forms z[r][k][j] = sum_i h[r][i] * w4[k][i][j] for its own
+//     j, and the cell update of (r, j) in registers, since all four gates
+//     of column j are in this CTA; c of its columns never leaves it.  It
+//     writes ys (and for K5 the gates and cs) to device memory and stores
+//     h[:, S] into every CTA of the cluster (distributed shared memory);
+//     one cluster barrier a step makes the new h visible.
+//   * The product is bound by shared-memory reads, not FMAs (40 K FMA
+//     per CTA and step at N = 32, H = 200).  A group of FG = 8 lanes
+//     takes one column j for RB batch rows: each float4 of w4 feeds RB
+//     rows and four gates, the lanes split the i range in fixed chunks,
+//     and three shuffles sum the group in a fixed order.
+//   * Batch rows never interact, so R rows go to a cluster and the row
+//     groups are spread over as many clusters as the card holds at once
+//     (fwd_plan; 16 clusters of 2 rows at N = 32, H = 200 on an H100);
+//     more groups than clusters loop.
+//   * xp of step t+1 is copied into shared memory by cp.async while step
+//     t waits at the barrier, each value by the thread that reads it.
 //
 // K6, a persistent recurrence on thread-block clusters, then the weight
 // gradients:
@@ -83,10 +96,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int ROWS = 2;       // batch rows one K4/K5 block owns
-constexpr int MAX_H = 1024;   // K4/K5: one thread per column, at most 1024
-constexpr int CL = 8;         // CTAs per K6 cluster (the portable maximum)
-constexpr int BT = 256;       // threads per K6 CTA
+constexpr int MAX_H = 1024;   // the widest H the three kernels take
+constexpr int CL = 8;         // CTAs per cluster (the portable maximum)
+constexpr int BT = 256;       // threads per CTA of K4/K5 and K6
+constexpr int FG = 8;         // K4/K5: lanes that share one column's products
+constexpr int FR = 2;         // K4/K5: batch rows per register block
 constexpr int RB = 4;         // batch rows per register block of dh
 constexpr int SMEM_LIMIT = 232448;  // shared memory one block may use
 constexpr int DWT = 64;       // dw4 output tile (DWT x DWT)
@@ -98,100 +112,6 @@ __device__ __forceinline__ float sigm(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-inline int threads_for(int H) {
-  return ((H + 31) / 32) * 32;
-}
-
-// K4 (SAVE = false) and K5 (SAVE = true).  Shared memory: h[2][ROWS][H],
-// c[ROWS][H].
-template <bool SAVE>
-__global__ void lstm_fwd_kernel(const float* __restrict__ xp,
-                                const float* __restrict__ w4,
-                                const float* __restrict__ bh,
-                                const float* __restrict__ h0,
-                                const float* __restrict__ c0,
-                                float* __restrict__ ys,
-                                float* __restrict__ gates,
-                                float* __restrict__ cs,
-                                float* __restrict__ hT,
-                                float* __restrict__ cT, int T, int N,
-                                int H) {
-  extern __shared__ float sm[];
-  float* hbuf = sm;                 // [2][ROWS][H]
-  float* cbuf = sm + 2 * ROWS * H;  // [ROWS][H]
-  const int n0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, N - n0);
-  const size_t HH = (size_t)H * H;
-  const size_t NH = (size_t)N * H;
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-    const int r = idx / H;
-    const size_t src = (size_t)(n0 + r) * H + (idx - r * H);
-    hbuf[idx] = r < rows ? h0[src] : 0.f;
-    hbuf[ROWS * H + idx] = 0.f;
-    cbuf[idx] = r < rows ? c0[src] : 0.f;
-  }
-  __syncthreads();
-  for (int t = 0; t < T; ++t) {
-    const float* hc = hbuf + (t & 1) * ROWS * H;
-    float* hn = hbuf + ((t + 1) & 1) * ROWS * H;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) {
-      float acc[4][ROWS];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[k][r] = 0.f;
-      const float* w = w4 + j;
-#pragma unroll 4
-      for (int i = 0; i < H; ++i) {
-        const size_t o = (size_t)i * H;
-        const float w0 = __ldg(w + o);
-        const float w1 = __ldg(w + HH + o);
-        const float w2 = __ldg(w + 2 * HH + o);
-        const float w3 = __ldg(w + 3 * HH + o);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float hv = hc[r * H + i];
-          acc[0][r] = fmaf(hv, w0, acc[0][r]);
-          acc[1][r] = fmaf(hv, w1, acc[1][r]);
-          acc[2][r] = fmaf(hv, w2, acc[2][r]);
-          acc[3][r] = fmaf(hv, w3, acc[3][r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (r >= rows) break;
-        const int n = n0 + r;
-        const size_t xo = ((size_t)t * 4 * N + n) * H + j;  // xp[t][0][n][j]
-        const float gi = sigm((xp[xo] + acc[0][r]) + bh[j]);
-        const float gf = sigm((xp[xo + NH] + acc[1][r]) + bh[H + j]);
-        const float gg = tanhf((xp[xo + 2 * NH] + acc[2][r]) + bh[2 * H + j]);
-        const float go = sigm((xp[xo + 3 * NH] + acc[3][r]) + bh[3 * H + j]);
-        const float c = gf * cbuf[r * H + j] + gi * gg;
-        const float h = go * tanhf(c);
-        cbuf[r * H + j] = c;
-        hn[r * H + j] = h;
-        const size_t yo = ((size_t)t * N + n) * H + j;
-        ys[yo] = h;
-        if (SAVE) {
-          cs[yo] = c;
-          gates[xo] = gi;
-          gates[xo + NH] = gf;
-          gates[xo + 2 * NH] = gg;
-          gates[xo + 3 * NH] = go;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const float* hl = hbuf + (T & 1) * ROWS * H;
-  for (int idx = threadIdx.x; idx < rows * H; idx += blockDim.x) {
-    const size_t dst = (size_t)n0 * H + idx;
-    hT[dst] = hl[idx];
-    cT[dst] = cbuf[idx];
-  }
-}
-
-// -- K6 ----------------------------------------------------------------------
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
@@ -206,6 +126,212 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// -- K4 and K5 ---------------------------------------------------------------
+// Floats of a K4/K5 CTA's shared memory besides its rows of w4: the h
+// exchange [2][R][H], c [R][Sz], the xp prefetch [2][4][R][Sz] and bh's
+// slice [4][Sz].
+inline size_t fwd_fixed_floats(int R, int H, int Sz) {
+  return (size_t)R * (2 * H + 9 * Sz) + 4 * (size_t)Sz;
+}
+
+// xp[t] of the elements whose cell update this thread does -> pre[4][R][Sz]:
+// lane s of the group that takes (column jl, rows nb..) copies row nb + s.
+__device__ __forceinline__ void fwd_prefetch(float* pre,
+                                             const float* __restrict__ xp,
+                                             int t, int n0, int rows, int j0,
+                                             int sz, int N, int H, int RS,
+                                             int Sz) {
+  const int s = threadIdx.x % FG;
+  const int ntask = sz * ((rows + FR - 1) / FR);
+  const size_t NH = (size_t)N * H;
+  for (int u = threadIdx.x / FG; u < ntask; u += BT / FG) {
+    const int jl = u % sz, r = (u / sz) * FR + s;
+    if (s >= FR || r >= rows) continue;
+    const size_t xo = ((size_t)t * 4 * N + n0 + r) * H + j0 + jl;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      cp_async4(pre + k * RS + r * Sz + jl, xp + xo + k * NH);
+  }
+}
+
+// K4 (SAVE = false) and K5 (SAVE = true): clusters of CL CTAs, CTA `rank`
+// owning the columns [rank*Sz, rank*Sz + sz) of every gate; R batch rows
+// per cluster pass, taken FR at a time; rows i < Sw of the slice of w4 in
+// shared memory, laid out [i][P] as float4 (gates i, f, g, o) with an odd
+// pitch P; lane s of a group sums i in [s*chunk, (s+1)*chunk) (chunk odd,
+// so the eight lanes' float4 reads fall in distinct banks).
+template <bool SAVE>
+__global__ void __launch_bounds__(BT)
+    lstm_fwd_cluster_kernel(const float* __restrict__ xp,
+                            const float* __restrict__ w4,
+                            const float* __restrict__ bh,
+                            const float* __restrict__ h0,
+                            const float* __restrict__ c0,
+                            float* __restrict__ ys, float* __restrict__ gates,
+                            float* __restrict__ cs, float* __restrict__ hT,
+                            float* __restrict__ cT, int T, int N, int H,
+                            int R, int Sz, int P, int Sw, int chunk) {
+  extern __shared__ float4 sm4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / CL;
+  const int nclusters = gridDim.x / CL;
+  const int j0 = rank * Sz;
+  const int sz = max(0, min(Sz, H - j0));
+  const int RS = R * Sz;
+  float4* w4s = sm4;                                 // [Sw][P]
+  float* hx = reinterpret_cast<float*>(sm4 + (size_t)Sw * P);  // [2][R][H]
+  float* cb = hx + 2 * R * H;                        // [R][Sz]
+  float* pre = cb + RS;                              // [2][4][R][Sz]
+  float* bs = pre + 8 * RS;                          // [4][Sz]
+  const size_t NH = (size_t)N * H;
+  const int lane = threadIdx.x & 31;
+  const int s = lane % FG;
+  const unsigned group = 0xFFu << (lane & ~(FG - 1));
+  const int i0 = s * chunk, i1 = min(H, i0 + chunk), im = min(i1, Sw);
+
+  float* w4f = reinterpret_cast<float*>(w4s);
+  for (int idx = threadIdx.x; idx < Sw * 4 * sz; idx += BT) {
+    const int i = idx / (4 * sz);
+    const int rem = idx - i * 4 * sz;
+    const int k = rem / sz, jl = rem - k * sz;
+    w4f[((size_t)i * P + jl) * 4 + k] = w4[((size_t)k * H + i) * H + j0 + jl];
+  }
+  for (int idx = threadIdx.x; idx < 4 * sz; idx += BT) {
+    const int k = idx / sz, jl = idx - k * sz;
+    bs[k * Sz + jl] = bh[k * H + j0 + jl];
+  }
+  cluster.sync();  // every CTA of the cluster runs, w4s is loaded
+
+  const int ngroups = (N + R - 1) / R;
+  int step = 0;  // counts steps across row groups: the buffer parity
+  for (int grp = cid; grp < ngroups; grp += nclusters) {
+    const int n0 = grp * R;
+    const int rows = min(R, N - n0);
+    const int ntask = sz * ((rows + FR - 1) / FR);
+    __syncthreads();  // the last group's hT and cT are read
+    float* h_init = hx + (step & 1) * R * H;
+    for (int e = threadIdx.x; e < rows * H; e += BT)
+      h_init[e] = h0[(size_t)n0 * H + e];
+    for (int e = threadIdx.x; e < rows * sz; e += BT) {
+      const int r = e / sz, jl = e - r * sz;
+      cb[r * Sz + jl] = c0[(size_t)(n0 + r) * H + j0 + jl];
+    }
+    fwd_prefetch(pre + (step & 1) * 4 * RS, xp, 0, n0, rows, j0, sz, N, H,
+                 RS, Sz);
+    cp_async_commit();
+    __syncthreads();  // h0 and c0 are in place
+    for (int t = 0; t < T; ++t, ++step) {
+      const int buf = step & 1;
+      const float* hc = hx + buf * R * H;
+      const float* pb = pre + buf * 4 * RS;
+      cp_async_wait_all();  // this thread's xp[t] values are in pb
+      for (int u = threadIdx.x / FG; u < ntask; u += BT / FG) {
+        const int jl = u % sz, nb = (u / sz) * FR;
+        const int nrow = min(FR, rows - nb);
+        const float* hr[FR];
+#pragma unroll
+        for (int r = 0; r < FR; ++r)
+          hr[r] = hc + min(nb + r, rows - 1) * H;  // a row past the group
+                                                   // repeats the last
+        float acc[FR][4];
+#pragma unroll
+        for (int r = 0; r < FR; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[r][k] = 0.f;
+#pragma unroll 4
+        for (int i = i0; i < im; ++i) {
+          const float4 w = w4s[i * P + jl];
+#pragma unroll
+          for (int r = 0; r < FR; ++r) {
+            const float hv = hr[r][i];
+            acc[r][0] = fmaf(hv, w.x, acc[r][0]);
+            acc[r][1] = fmaf(hv, w.y, acc[r][1]);
+            acc[r][2] = fmaf(hv, w.z, acc[r][2]);
+            acc[r][3] = fmaf(hv, w.w, acc[r][3]);
+          }
+        }
+        // rows of the slice past Sw, read from device memory (L2)
+        const float* wg = w4 + j0 + jl;
+        for (int i = max(i0, Sw); i < i1; ++i) {
+          const size_t o = (size_t)i * H;
+          const float w0 = __ldg(wg + o), w1 = __ldg(wg + H * (size_t)H + o);
+          const float w2 = __ldg(wg + 2 * H * (size_t)H + o);
+          const float w3 = __ldg(wg + 3 * H * (size_t)H + o);
+#pragma unroll
+          for (int r = 0; r < FR; ++r) {
+            const float hv = hr[r][i];
+            acc[r][0] = fmaf(hv, w0, acc[r][0]);
+            acc[r][1] = fmaf(hv, w1, acc[r][1]);
+            acc[r][2] = fmaf(hv, w2, acc[r][2]);
+            acc[r][3] = fmaf(hv, w3, acc[r][3]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < FR; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int off = FG / 2; off > 0; off >>= 1)
+              acc[r][k] += __shfl_xor_sync(group, acc[r][k], off);
+        // lane s updates row nb + s of column jl
+        float h = 0.f;
+        if (s < nrow) {
+          float z[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            z[k] = acc[0][k];
+#pragma unroll
+            for (int r = 1; r < FR; ++r)
+              if (s == r) z[k] = acc[r][k];
+          }
+          const int r = nb + s, n = n0 + r, j = j0 + jl;
+          const int q = r * Sz + jl;
+          const float gi = sigm((pb[q] + z[0]) + bs[jl]);
+          const float gf = sigm((pb[RS + q] + z[1]) + bs[Sz + jl]);
+          const float gg = tanhf((pb[2 * RS + q] + z[2]) + bs[2 * Sz + jl]);
+          const float go = sigm((pb[3 * RS + q] + z[3]) + bs[3 * Sz + jl]);
+          const float c = gf * cb[q] + gi * gg;
+          h = go * tanhf(c);
+          cb[q] = c;
+          const size_t yo = ((size_t)t * N + n) * H + j;
+          ys[yo] = h;
+          if (SAVE) {
+            const size_t xo = ((size_t)t * 4 * N + n) * H + j;
+            cs[yo] = c;
+            gates[xo] = gi;
+            gates[xo + NH] = gf;
+            gates[xo + 2 * NH] = gg;
+            gates[xo + 3 * NH] = go;
+          }
+        }
+        // lane s stores the group's new h into CTA s of the cluster
+        float* peer = cluster.map_shared_rank(hx, s);
+        const int base = lane & ~(FG - 1);
+        const int ho = ((buf ^ 1) * R + nb) * H + j0 + jl;
+#pragma unroll
+        for (int r = 0; r < FR; ++r) {
+          const float v = __shfl_sync(group, h, base + r);
+          if (r < nrow) peer[ho + r * H] = v;
+        }
+      }
+      if (t + 1 < T)
+        fwd_prefetch(pre + (buf ^ 1) * 4 * RS, xp, t + 1, n0, rows, j0, sz,
+                     N, H, RS, Sz);
+      cp_async_commit();
+      cluster.sync();  // h of step t from every CTA is here
+    }
+    const float* hl = hx + (step & 1) * R * H;
+    for (int e = threadIdx.x; e < rows * sz; e += BT) {
+      const int r = e / sz, jl = e - r * sz;
+      const size_t dst = (size_t)(n0 + r) * H + j0 + jl;
+      hT[dst] = hl[r * H + j0 + jl];
+      cT[dst] = cb[r * Sz + jl];
+    }
+  }
+}
+
+// -- K6 ----------------------------------------------------------------------
 // Floats of a K6 CTA's shared memory besides its rows of w4: the dz
 // exchange [2][R][4][H], dh and dc [R][Sz], the prefetch [2][7][R][Sz].
 inline size_t bwd_fixed_floats(int R, int H, int Sz) {
@@ -587,105 +713,163 @@ __global__ void lstm_dw_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-// How K6's recurrence is laid out for (N, H) on the current device: rows
-// per cluster pass, slice width, w4 rows kept in shared memory, clusters,
-// shared memory bytes.  Cached per (device, N, H).
-struct BwdPlan {
+// How a clustered recurrence is laid out for (N, H) on the current device:
+// rows per cluster pass, slice width, rows i of the slice of w4 kept in
+// shared memory, clusters, shared memory bytes per CTA; for K4/K5 also
+// the pitch of w4s and the i chunk of a lane.  Cached per (device, N, H).
+struct Plan {
   int dev = -1, N = 0, H = 0;
   int R = 0, Sz = 0, Sw = 0, clusters = 0;
   size_t smem = 0;
+  int P = 0, chunk = 0;
 };
 
-int active_clusters(size_t smem, int* out) {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(CL);
-  cfg.blockDim = dim3(BT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, lstm_bwd_cluster_kernel,
-                                             &cfg);
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    int clusters, size_t smem, cudaStream_t stream) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(clusters * CL);
+  cfg->blockDim = dim3(BT);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
 }
 
-int bwd_plan(int N, int H, BwdPlan* plan) {
-  static std::mutex mu;
-  static BwdPlan cached;
-  int dev = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (cached.dev == dev && cached.N == N && cached.H == H) {
-    *plan = cached;
-    return 0;
-  }
-  err = (int)cudaFuncSetAttribute(lstm_bwd_cluster_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  SMEM_LIMIT);
-  if (err) return err;
-  const int Sz = (H + CL - 1) / CL;
-  const size_t limit = SMEM_LIMIT / sizeof(float);
-  const size_t ldw = 4 * (size_t)H;  // floats of one row i of w4s
-  auto w4_rows = [&](int R) {  // rows of the slice that fit beside the rest
-    const size_t fixed = bwd_fixed_floats(R, H, Sz);
-    const size_t rows = fixed < limit ? (limit - fixed) / ldw : 0;
-    return (int)(rows < (size_t)Sz ? rows : Sz);
-  };
-  auto bytes = [&](int R) {
-    return (bwd_fixed_floats(R, H, Sz) + (size_t)w4_rows(R) * ldw) *
-           sizeof(float);
-  };
-  const int R_max = (int)(limit / (8 * (size_t)H + 16 * (size_t)Sz));
+// The fewest rows per cluster (at most R_max) whose row groups all run at
+// once, for a CTA that needs bytes(R) of shared memory and runs kernel(R);
+// with it, the clusters the card holds at once.
+template <typename Bytes, typename Kernel>
+int pick_rows(int N, int R_max, Bytes bytes, Kernel kernel, int* R_out,
+              int* active_out) {
   if (R_max < 1) return (int)cudaErrorInvalidValue;
-  // the fewest rows per cluster whose row groups all run at once
   int R = 1, active = 0;
   for (int tries = 0; tries < 4; ++tries) {
-    err = active_clusters(bytes(R), &active);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(&cfg, &attr, 1, bytes(R), 0);
+    const int err = (int)cudaOccupancyMaxActiveClusters(&active, kernel(R),
+                                                        &cfg);
     if (err) return err;
     if (active < 1) return (int)cudaErrorInvalidConfiguration;
     if ((N + R - 1) / R <= active || R == R_max) break;
     R = (N + active - 1) / active;
     if (R > R_max) R = R_max;
   }
-  const int groups = (N + R - 1) / R;
-  cached.dev = dev;
-  cached.N = N;
-  cached.H = H;
-  cached.R = R;
-  cached.Sz = Sz;
-  cached.Sw = w4_rows(R);
-  cached.clusters = groups < active ? groups : active;
-  cached.smem = bytes(R);
+  *R_out = R;
+  *active_out = active;
+  return 0;
+}
+
+// Looks up (dev, N, H) in `cached`, else fills it with make(plan) under `mu`.
+template <typename Make>
+int cached_plan(std::mutex& mu, Plan& cached, int N, int H, Plan* plan,
+                Make make) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (cached.dev != dev || cached.N != N || cached.H != H) {
+    Plan fresh;
+    err = make(&fresh);
+    if (err) return err;
+    fresh.dev = dev;
+    fresh.N = N;
+    fresh.H = H;
+    cached = fresh;
+  }
   *plan = cached;
   return 0;
 }
 
-}  // namespace
-
-// Floats of work space one call needs (K6: the partial dw4/dbh products,
-// P * 4 * (H+1) * H when the T*N axis is split; K4 and K5: none), or -1
-// for a shape the kernels do not take: H above MAX_H (K4/K5 give a thread
-// to each column) or T*4*N*H at or above 2^31.  The wrappers size their
-// allocation from this, so the limits live here only.
-extern "C" long long mxtt_lstm_work_floats(long long T, long long N,
-                                           long long H, int bwd) {
-  if (T <= 0 || N <= 0 || H <= 0 || H > MAX_H) return -1;
-  if (T * 4 * N * H >= (1LL << 31)) return -1;
-  if (!bwd) return 0;
-  const int P = dw_splits(T * N, (int)H);
-  return P > 1 ? (long long)P * 4 * (H + 1) * H : 0;
+int fwd_plan(int N, int H, Plan* plan) {
+  static std::mutex mu;
+  static Plan cached;
+  return cached_plan(mu, cached, N, H, plan, [&](Plan* p) {
+    const void* kernels[] = {(const void*)lstm_fwd_cluster_kernel<false>,
+                             (const void*)lstm_fwd_cluster_kernel<true>};
+    for (const void* k : kernels) {
+      const int err = (int)cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+      if (err) return err;
+    }
+    const int Sz = (H + CL - 1) / CL;
+    const int P = Sz | 1;  // odd pitches and chunks: no bank conflicts
+    const int chunk = ((H + FG - 1) / FG) | 1;
+    const size_t limit = SMEM_LIMIT / sizeof(float);
+    const size_t ldw = 4 * (size_t)P;  // floats of one row i of w4s
+    auto w4_rows = [&](int R) {  // rows of the slice that fit beside the rest
+      const size_t fixed = fwd_fixed_floats(R, H, Sz);
+      const size_t rows = fixed < limit ? (limit - fixed) / ldw : 0;
+      return (int)(rows < (size_t)H ? rows : H);
+    };
+    auto bytes = [&](int R) {
+      return (fwd_fixed_floats(R, H, Sz) + (size_t)w4_rows(R) * ldw) *
+             sizeof(float);
+    };
+    const int R_max = (int)((limit - 4 * (size_t)Sz) /
+                            (2 * (size_t)H + 9 * (size_t)Sz));
+    int R = 0, active = 0;
+    const int err = pick_rows(
+        N, R_max, bytes,
+        [](int) { return (const void*)lstm_fwd_cluster_kernel<true>; }, &R,
+        &active);
+    if (err) return err;
+    const int groups = (N + R - 1) / R;
+    p->R = R;
+    p->Sz = Sz;
+    p->Sw = w4_rows(R);
+    p->clusters = groups < active ? groups : active;
+    p->smem = bytes(R);
+    p->P = P;
+    p->chunk = chunk;
+    return 0;
+  });
 }
 
-// K6's layout for (N, H) on the current device, for reports:
-// out = {rows per cluster pass, slice width, w4 rows of a slice in shared
-// memory, clusters, shared memory bytes per CTA}.  Returns a CUDA error.
-extern "C" int mxtt_lstm_bwd_plan(int N, int H, long long* out) {
-  BwdPlan plan;
-  const int err = bwd_plan(N, H, &plan);
+int bwd_plan(int N, int H, Plan* plan) {
+  static std::mutex mu;
+  static Plan cached;
+  return cached_plan(mu, cached, N, H, plan, [&](Plan* p) {
+    int err = (int)cudaFuncSetAttribute(
+        lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_LIMIT);
+    if (err) return err;
+    const int Sz = (H + CL - 1) / CL;
+    const size_t limit = SMEM_LIMIT / sizeof(float);
+    const size_t ldw = 4 * (size_t)H;  // floats of one row i of w4s
+    auto w4_rows = [&](int R) {  // rows of the slice that fit beside the rest
+      const size_t fixed = bwd_fixed_floats(R, H, Sz);
+      const size_t rows = fixed < limit ? (limit - fixed) / ldw : 0;
+      return (int)(rows < (size_t)Sz ? rows : Sz);
+    };
+    auto bytes = [&](int R) {
+      return (bwd_fixed_floats(R, H, Sz) + (size_t)w4_rows(R) * ldw) *
+             sizeof(float);
+    };
+    const int R_max = (int)(limit / (8 * (size_t)H + 16 * (size_t)Sz));
+    int R = 0, active = 0;
+    err = pick_rows(
+        N, R_max, bytes,
+        [](int) { return (const void*)lstm_bwd_cluster_kernel; }, &R,
+        &active);
+    if (err) return err;
+    const int groups = (N + R - 1) / R;
+    p->R = R;
+    p->Sz = Sz;
+    p->Sw = w4_rows(R);
+    p->clusters = groups < active ? groups : active;
+    p->smem = bytes(R);
+    return 0;
+  });
+}
+
+// out = {rows per cluster pass, slice width, rows of a slice of w4 in
+// shared memory, clusters, shared memory bytes per CTA}.
+int plan_out(int err, const Plan& plan, long long* out) {
   if (err) return err;
   out[0] = plan.R;
   out[1] = plan.Sz;
@@ -695,17 +879,63 @@ extern "C" int mxtt_lstm_bwd_plan(int N, int H, long long* out) {
   return 0;
 }
 
+template <bool SAVE>
+int fwd_launch(const float* xp, const float* w4, const float* bh,
+               const float* h0, const float* c0, float* ys, float* gates,
+               float* cs, float* hT, float* cT, int T, int N, int H,
+               void* stream) {
+  Plan plan;
+  int err = fwd_plan(N, H, &plan);
+  if (err) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, plan.clusters, plan.smem,
+                 (cudaStream_t)stream);
+  err = (int)cudaLaunchKernelEx(&cfg, lstm_fwd_cluster_kernel<SAVE>, xp, w4,
+                                bh, h0, c0, ys, gates, cs, hT, cT, T, N, H,
+                                plan.R, plan.Sz, plan.P, plan.Sw, plan.chunk);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of work space one call needs (K6: the partial dw4/dbh products,
+// P * 4 * (H+1) * H when the T*N axis is split; K4 and K5: none), or -1
+// for a shape the kernels do not take: H above MAX_H or T*4*N*H at or
+// above 2^31.  The wrappers size their allocation from this, so the limits
+// live here only.
+extern "C" long long mxtt_lstm_work_floats(long long T, long long N,
+                                           long long H, int bwd) {
+  if (T <= 0 || N <= 0 || H <= 0 || H > MAX_H) return -1;
+  if (T * 4 * N * H >= (1LL << 31)) return -1;
+  if (!bwd) return 0;
+  const int P = dw_splits(T * N, (int)H);
+  return P > 1 ? (long long)P * 4 * (H + 1) * H : 0;
+}
+
+// The layouts of K4/K5 and of K6's recurrence for (N, H) on the current
+// device, for reports: out = {rows per cluster pass, slice width, rows of
+// a slice of w4 in shared memory, clusters, shared memory bytes per CTA}.
+// Each returns a CUDA error.
+extern "C" int mxtt_lstm_fwd_plan(int N, int H, long long* out) {
+  Plan plan;
+  return plan_out(fwd_plan(N, H, &plan), plan, out);
+}
+
+extern "C" int mxtt_lstm_bwd_plan(int N, int H, long long* out) {
+  Plan plan;
+  return plan_out(bwd_plan(N, H, &plan), plan, out);
+}
+
 // Each entry point launches on `stream` and returns the first
 // cudaGetLastError() that is not 0 (0 when every launch was taken).
 extern "C" int mxtt_lstm_infer(const float* xp, const float* w4,
                                const float* bh, const float* h0,
                                const float* c0, float* ys, float* hT,
                                float* cT, int T, int N, int H, void* stream) {
-  const size_t smem = (size_t)3 * ROWS * H * sizeof(float);
-  lstm_fwd_kernel<false><<<(N + ROWS - 1) / ROWS, threads_for(H), smem,
-                           (cudaStream_t)stream>>>(
-      xp, w4, bh, h0, c0, ys, nullptr, nullptr, hT, cT, T, N, H);
-  return (int)cudaGetLastError();
+  return fwd_launch<false>(xp, w4, bh, h0, c0, ys, nullptr, nullptr, hT, cT,
+                           T, N, H, stream);
 }
 
 extern "C" int mxtt_lstm_fwd(const float* xp, const float* w4,
@@ -713,11 +943,8 @@ extern "C" int mxtt_lstm_fwd(const float* xp, const float* w4,
                              const float* c0, float* ys, float* gates,
                              float* cs, float* hT, float* cT, int T, int N,
                              int H, void* stream) {
-  const size_t smem = (size_t)3 * ROWS * H * sizeof(float);
-  lstm_fwd_kernel<true><<<(N + ROWS - 1) / ROWS, threads_for(H), smem,
-                          (cudaStream_t)stream>>>(
-      xp, w4, bh, h0, c0, ys, gates, cs, hT, cT, T, N, H);
-  return (int)cudaGetLastError();
+  return fwd_launch<true>(xp, w4, bh, h0, c0, ys, gates, cs, hT, cT, T, N, H,
+                          stream);
 }
 
 extern "C" int mxtt_lstm_bwd(const float* gates, const float* cs,
@@ -728,21 +955,12 @@ extern "C" int mxtt_lstm_bwd(const float* gates, const float* cs,
                              float* dbh, float* dh0, float* dc0, float* work,
                              int T, int N, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  BwdPlan plan;
+  Plan plan;
   int err = bwd_plan(N, H, &plan);
   if (err) return err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(plan.clusters * CL);
-  cfg.blockDim = dim3(BT);
-  cfg.dynamicSmemBytes = plan.smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, plan.clusters, plan.smem, st);
   err = (int)cudaLaunchKernelEx(&cfg, lstm_bwd_cluster_kernel, gates, cs, w4,
                                 c0, dys, dhT, dcT, dxp, dh0, dc0, T, N, H,
                                 plan.R, plan.Sz, plan.Sw);

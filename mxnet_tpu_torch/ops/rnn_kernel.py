@@ -34,7 +34,7 @@ from ..base import MXNetError
 
 __all__ = ["lstm_infer_plain", "lstm_fwd_plain", "lstm_bwd_plain",
            "lstm_infer_cuda", "lstm_fwd_cuda", "lstm_bwd_cuda",
-           "lstm_bwd_plan", "LSTMSeqFn", "lstm_seq"]
+           "lstm_fwd_plan", "lstm_bwd_plan", "LSTMSeqFn", "lstm_seq"]
 
 
 # -- the plain versions -------------------------------------------------------
@@ -221,11 +221,8 @@ def lstm_bwd_cuda(gates, cs, ys, w4, h0, c0, dys, dhT, dcT):
     return dxp, dw4, dbh, dh0, dc0
 
 
-def lstm_bwd_plan(N, H, device):
-    """How K6 lays out its recurrence for batch ``N`` and width ``H`` on
-    ``device``: rows per cluster pass, slice width, rows of w4 per slice
-    kept in shared memory, clusters launched, shared memory per CTA."""
-    fn = _kernels.load("lstm").mxtt_lstm_bwd_plan
+def _plan(name, what, N, H, device):
+    fn = getattr(_kernels.load("lstm"), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_longlong)]
@@ -234,9 +231,24 @@ def lstm_bwd_plan(N, H, device):
     with torch.cuda.device(device):
         err = fn(N, H, out)
     if err != 0:
-        raise MXNetError("LSTM backward plan failed: CUDA error %d" % err)
+        raise MXNetError("LSTM %s plan failed: CUDA error %d" % (what, err))
     return dict(zip(("rows", "slice", "w4_rows_in_smem", "clusters",
                      "smem_bytes"), out))
+
+
+def lstm_fwd_plan(N, H, device):
+    """How K4 and K5 lay out their recurrence for batch ``N`` and width
+    ``H`` on ``device``: rows per cluster pass, slice width (columns per
+    CTA), rows of the slice of w4 kept in shared memory, clusters
+    launched, shared memory per CTA."""
+    return _plan("mxtt_lstm_fwd_plan", "forward", N, H, device)
+
+
+def lstm_bwd_plan(N, H, device):
+    """How K6 lays out its recurrence for batch ``N`` and width ``H`` on
+    ``device``: rows per cluster pass, slice width, rows of w4 per slice
+    kept in shared memory, clusters launched, shared memory per CTA."""
+    return _plan("mxtt_lstm_bwd_plan", "backward", N, H, device)
 
 
 #: launches of kernels K4, K5 and K6 in this process (reset freely)

@@ -293,13 +293,16 @@ def _lstm_inputs(T, N, H, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,N,H", [(5, 3, 20), (7, 5, 33), (10, 32, 200),
-                                   (60, 32, 200)])
+@pytest.mark.parametrize("T,N,H", [
+    (5, 3, 20), (7, 5, 33), (10, 32, 200), (60, 32, 200),
+    # batch rows over many clusters, one row, slices so narrow that CTAs
+    # idle, more row groups than clusters with w4 streaming from L2
+    (6, 200, 200), (5, 1, 200), (3, 2, 9), (2, 1000, 1024)])
 def test_lstm_kernels_match_plain(cuda_device, T, N, H):
     """K4, K5 and K6 against their plain versions on the same inputs:
     forward within 1e-5 and backward within 1e-4 of each output's largest
-    magnitude (f32 sums in another order, compounded over T steps); K6's
-    dw4 and dbh repeat bit for bit."""
+    magnitude (f32 sums in another order, compounded over T steps); K4's
+    and K5's outputs and K6's dw4 and dbh repeat bit for bit."""
     xp, w4, bh, h0, c0 = _lstm_inputs(T, N, H, 3, cuda_device)
     before = (rnn_kernel.lstm_infer_cuda.launches,
               rnn_kernel.lstm_fwd_cuda.launches,
@@ -312,6 +315,10 @@ def test_lstm_kernels_match_plain(cuda_device, T, N, H):
         _assert_rel(got, ref, 1e-5)
     for got, ref in zip((ys4, hT4, cT4), (want[0], want[3], want[4])):
         _assert_rel(got, ref, 1e-5)
+    again = (rnn_kernel.lstm_infer_cuda(xp, w4, bh, h0, c0)
+             + rnn_kernel.lstm_fwd_cuda(xp, w4, bh, h0, c0))
+    for a, b in zip((ys4, hT4, cT4) + fwd, again):
+        assert torch.equal(a, b)
     ys, gates, cs = fwd[:3]
     rs = np.random.RandomState(4)
     dys, dhT, dcT = [torch.from_numpy(rs.standard_normal(s).astype(
@@ -327,7 +334,7 @@ def test_lstm_kernels_match_plain(cuda_device, T, N, H):
     assert (rnn_kernel.lstm_infer_cuda.launches,
             rnn_kernel.lstm_fwd_cuda.launches,
             rnn_kernel.lstm_bwd_cuda.launches) == (
-                before[0] + 1, before[1] + 1, before[2] + 2)
+                before[0] + 2, before[1] + 2, before[2] + 2)
 
 
 @pytest.mark.cuda
@@ -354,6 +361,51 @@ def test_lstm_bwd_across_clusters(cuda_device, T, N, H):
     again = rnn_kernel.lstm_bwd_cuda(*args)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_lstm_forward_plan(cuda_device):
+    """K4/K5's layout: at the LM's shape every row group runs at once with
+    the whole slice of w4 in shared memory; at N = 1000, H = 1024 row
+    groups outnumber clusters (the kernel loops over them) and the slice
+    streams from L2 past its first rows."""
+    lm = rnn_kernel.lstm_fwd_plan(32, 200, cuda_device)
+    assert (lm["slice"], lm["w4_rows_in_smem"]) == (25, 200)
+    assert lm["rows"] * lm["clusters"] >= 32
+    wide = rnn_kernel.lstm_fwd_plan(1000, 1024, cuda_device)
+    assert wide["slice"] == 128 and wide["w4_rows_in_smem"] < 1024
+    assert -(-1000 // wide["rows"]) > wide["clusters"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [513, 1024])
+def test_lstm_forward_above_512_columns(cuda_device, H):
+    """K4 and K5 launch above H = 512 (a block of one thread per column
+    would need more registers than an SM has) and agree with their plain
+    versions within 1e-5 of each output's largest magnitude; at
+    H = 1024, K6 run on K5's own outputs agrees with its plain version
+    on the same inputs within 1e-4."""
+    T, N = 4, 8
+    xp, w4, bh, h0, c0 = _lstm_inputs(T, N, H, 8, cuda_device)
+    ys4, hT4, cT4 = rnn_kernel.lstm_infer_cuda(xp, w4, bh, h0, c0)
+    fwd = rnn_kernel.lstm_fwd_cuda(xp, w4, bh, h0, c0)
+    torch.cuda.synchronize()
+    want = rnn_kernel.lstm_fwd_plain(xp, w4, bh, h0, c0)
+    for got, ref in zip(fwd, want):
+        _assert_rel(got, ref, 1e-5)
+    for got, ref in zip((ys4, hT4, cT4), (want[0], want[3], want[4])):
+        _assert_rel(got, ref, 1e-5)
+    if H != 1024:
+        return
+    ys, gates, cs = fwd[:3]
+    rs = np.random.RandomState(9)
+    grads = [torch.from_numpy(rs.standard_normal(s).astype(np.float32))
+             .to(cuda_device) for s in ((T, N, H), (N, H), (N, H))]
+    args = (gates, cs, ys, w4, h0, c0, *grads)
+    got = rnn_kernel.lstm_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, rnn_kernel.lstm_bwd_plain(*args)):
+        _assert_rel(g, r, 1e-4)
 
 
 @pytest.mark.cuda

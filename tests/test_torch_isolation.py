@@ -40,6 +40,7 @@ def _py_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(_ROOT, "chip_smoke.py")
+    yield os.path.join(_ROOT, "chip_lstm_costs.py")
 
 
 def test_sources_import_no_jax_and_no_mxnet_tpu():

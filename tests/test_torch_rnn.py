@@ -183,6 +183,24 @@ def test_rnn_op_matches_jax(mode, bidir, pallas, monkeypatch):
                                    atol=1e-4, err_msg=k)
 
 
+def test_rnn_op_above_512_columns_matches_jax(monkeypatch):
+    """The ``RNN`` op at ``state_size`` 520, wider than one 512-thread
+    block of the forward kernels, against the JAX package's scan path:
+    the plain versions that the card tests hold K4/K5 to, at that width."""
+    monkeypatch.setenv("MXNET_RNN_PALLAS", "0")
+    case = dict(seq=3, batch=2, nin=4, nh=520, layers=1)
+    j_outs, j_grads = _rnn_case(jmx, "lstm", False, **case)
+    t_outs, t_grads = _rnn_case(tmx, "lstm", False, **case)
+    assert [o.shape for o in t_outs] == [(3, 2, 520), (1, 2, 520),
+                                         (1, 2, 520)]
+    for a, b in zip(t_outs, j_outs):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert sorted(t_grads) == sorted(j_grads)
+    for k in j_grads:
+        np.testing.assert_allclose(t_grads[k], j_grads[k], rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+
+
 def test_rnn_op_refuses_training_dropout_between_layers():
     net = tmx.sym.RNN(tmx.sym.Variable("x"), state_size=4, num_layers=2,
                       mode="lstm", p=0.3, name="rnn")
