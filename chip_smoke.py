@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``mxnet_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent-bn PATH]
 
 1. Prints the card's name and power limit.
 2. Builds every CUDA kernel of the port from ``mxnet_tpu_torch/csrc/``
@@ -20,11 +20,17 @@
    ResNet-50 b128 training step (shape, fix_gamma, fused ReLU), K1 and K2
    held against their plain versions (max error within ``1e-4`` of each
    output's largest magnitude; K2 takes K1's saved statistics in both, so
-   the ReLU masks agree) and timed beside the plain versions,
-   ``F.batch_norm(training=True)`` (K1, without the ReLU) and
-   ``aten.native_batch_norm_backward`` (K2) as yardsticks the port never
-   calls, and the bound (bytes over 3.35 TB/s: K1 reads x and writes y,
-   K2 reads x and g and writes dx).
+   the ReLU masks agree), each shape's layout printed (``bn_plan``), and
+   timed on the device with the L2 cold (the calls rotate over copies of
+   the inputs, at least 100 MB of them, captured in a CUDA graph and
+   replayed) beside ``F.batch_norm(training=True)`` (K1,
+   without the ReLU) and ``aten.native_batch_norm_backward`` (K2) as
+   yardsticks the port never calls, the kernels before the resident path
+   (``--parent-bn``: a copy of that ``csrc/batch_norm.cu``, built beside
+   the port's under ``build/bn_parent/``; not measured when absent), the
+   plain versions and the bound (bytes over 3.35 TB/s: K1 reads x and
+   writes y, K2 reads x and g and writes dx); summed over the step and
+   over the 50 BatchNorms outside bn_data.
 5. LSTM kernel phase: at each bucket length T in {10, ..., 60}, N=32,
    H=200, f32, K4 (inference forward), K5 (training forward) and K6
    (backward) held against their plain versions (forward outputs within
@@ -94,6 +100,7 @@ Exits non-zero, printing no result, without a card or outside the repo.
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -103,6 +110,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -117,6 +125,9 @@ VOCAB, EMBED, HEADS, SEQ = 32000, 1024, 8, 2048
 TRAIN_BATCH, TRAIN_STEPS, PARITY_BATCH = 128, 6, 4
 #: the checked step's bound on each K1/K2 output error (see bn_checking)
 BN_STEP_TOL = 1e-5
+#: bytes of input copies the BatchNorm timings rotate over (twice L2)
+COLD_BYTES = 100e6
+ROOT = os.path.dirname(os.path.abspath(__file__))
 #: CPU steps on perturbed inputs that set the parity floor
 PARITY_PERTURBATIONS = 3
 BUCKETS = (1, 4)
@@ -466,9 +477,99 @@ def resnet_bn_configs(mx, batch):
     return configs
 
 
-def bn_kernel_phase(bnk, dev, seed, configs):
+def _cold_time_ms(fn, inputs, iters, warmup=2):
+    """Device ms per call of ``fn(*inputs[i % len(inputs)])``.  The calls
+    rotate over copies of the inputs (at least ``COLD_BYTES`` of them), so
+    that no call finds its inputs in the 50 MB L2 cache left by the last,
+    and are captured in one CUDA graph and replayed, so that the host's
+    time to launch them (some 50 us a call through a Python wrapper, more
+    than a small BatchNorm takes on the card) does not hide the card's."""
+    for i in range(warmup):
+        fn(*inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / iters
+
+
+def start_parent_bn_build(path):
+    """Starts ``nvcc`` on the BatchNorm kernels of the port before the
+    resident path (a copy of that ``csrc/batch_norm.cu`` at ``path``),
+    into ``build/bn_parent/``; returns (process, library path), or None
+    when there is no such copy."""
+    if not path or not os.path.exists(path):
+        print("parent BatchNorm kernels: no source at %s, not measured"
+              % path, flush=True)
+        return None
+    from mxnet_tpu_torch import _kernels
+
+    out = os.path.join(ROOT, "build", "bn_parent")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "batch_norm_parent.so")
+    proc = subprocess.Popen(
+        [_kernels._nvcc()] + _kernels.NVCC_FLAGS + ["-o", so, path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, so
+
+
+def finish_parent_bn_build(started):
+    """The loaded library of :func:`start_parent_bn_build`, or None."""
+    if started is None:
+        return None
+    proc, so = started
+    log = proc.communicate()[0].decode()
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for the parent BatchNorm kernels:\n"
+                           + log)
+    return ctypes.CDLL(so)
+
+
+@contextlib.contextmanager
+def bn_library(bnk, lib):
+    """Within the block the K1/K2 wrappers launch from ``lib``, a library
+    with the same C interface."""
+    kernels = bnk._kernels
+    bnk._kernels = types.SimpleNamespace(load=lambda name: lib)
+    try:
+        yield
+    finally:
+        bnk._kernels = kernels
+
+
+def _plan_text(plan):
+    if plan["path"] == "chunked":
+        return "chunked (%d blocks)" % plan["clusters"]
+    return ("resident: %d clusters of %d CTA(s) (%d at once), %d "
+            "channel(s) of %d strips and %d KB of shared memory a CTA"
+            % (plan["clusters"], plan["ctas_per_cluster"],
+               plan["active_clusters"], plan["channels_per_cta"],
+               plan["strips_per_cta"], plan["smem_bytes"] // 1024))
+
+
+def bn_step_total(rows, key, keep=lambda r: True):
+    """``row[key]`` times the row's BatchNorms per step, summed over the
+    rows ``keep`` admits; None when one of them was not measured."""
+    vals = [(r[key], r["count"]) for r in rows if keep(r)]
+    if any(v is None for v, _ in vals):
+        return None
+    return sum(v * n for v, n in vals)
+
+
+def bn_kernel_phase(bnk, dev, seed, configs, parent_lib=None):
     """K1 and K2 against their plain versions at every BatchNorm input of
-    the step; returns one row per config and the step totals."""
+    the step, timed with the L2 cold beside the library calls and, when
+    ``parent_lib`` is given, the kernels before the resident path under
+    the same timer; returns one row per config and the step totals."""
     rows = []
     eps = 2e-5
     for (shape, fix_gamma, relu), count in sorted(
@@ -496,22 +597,55 @@ def bn_kernel_phase(bnk, dev, seed, configs):
             if max(e[1] for e in errs) > 1e-4:
                 raise RuntimeError("%s disagrees with its plain version at "
                                    "%s: %s" % (name, shape, errs))
+        del y, dx, plain
         n = x.numel()
-        iters = 10 if n > 20e6 else 30
-        fwd_ms = _time_ms(lambda: bnk.bn_fwd_cuda(
-            x, gamma, beta, eps, fix_gamma, relu), iters)
+        s = n // (shape[0] * c)
+        plans = [bnk.bn_plan(shape[0], c, s, bwd, dev) for bwd in (0, 1)]
+        # copies of x and g (clones: the saved statistics hold for each)
+        copies = [(x, g)] + [(x.clone(), g.clone()) for _ in range(
+            math.ceil(COLD_BYTES / x.nbytes) - 1)]
+        iters = max(2 * len(copies), 10 if n > 20e6 else 30)
+        invstd = 1.0 / torch.sqrt(var + eps)
+        fwd_args = [(xc,) for xc, _ in copies]
+        bwd_args = copies
+
+        def k1(xc):
+            return bnk.bn_fwd_cuda(xc, gamma, beta, eps, fix_gamma, relu)
+
+        def k2(xc, gc):
+            return bnk.bn_bwd_cuda(xc, gc, mean, var, gamma, beta, eps,
+                                   fix_gamma, relu)
+
+        def fwd_lib(xc):
+            return F.batch_norm(xc, None, None, gamma, beta, training=True,
+                                eps=eps)
+
+        def bwd_lib(xc, gc):
+            return torch.ops.aten.native_batch_norm_backward(
+                gc, xc, gamma, None, None, mean, invstd, True, eps,
+                [True, True, True])
+
+        # kernel, parent, library, library, parent, kernel: the mean of
+        # each pair, so a drift of the clock falls on all three alike
+        times = {}
+        order = ["new", "parent", "lib"] if parent_lib is not None \
+            else ["new", "lib"]
+        for who in order + order[::-1]:
+            for kind, kernel, lib, args in (("fwd", k1, fwd_lib, fwd_args),
+                                            ("bwd", k2, bwd_lib, bwd_args)):
+                if who == "lib":
+                    t = _cold_time_ms(lib, args, iters)
+                elif who == "parent":
+                    with bn_library(bnk, parent_lib):
+                        t = _cold_time_ms(kernel, args, iters)
+                else:
+                    t = _cold_time_ms(kernel, args, iters)
+                times.setdefault((kind, who), []).append(t)
+        times = {k: sum(v) / len(v) for k, v in times.items()}
         fwd_plain = _time_ms(lambda: bnk.bn_fwd_plain(
             x, gamma, beta, eps, fix_gamma, relu), 3, warmup=1)
-        fwd_lib = _time_ms(lambda: F.batch_norm(
-            x, None, None, gamma, beta, training=True, eps=eps), iters)
-        bwd_ms = _time_ms(lambda: bnk.bn_bwd_cuda(
-            x, g, mean, var, gamma, beta, eps, fix_gamma, relu), iters)
         bwd_plain = _time_ms(lambda: bnk.bn_bwd_plain(
             x, g, mean, var, gamma, beta, eps, fix_gamma, relu), 3, warmup=1)
-        invstd = 1.0 / torch.sqrt(var + eps)
-        bwd_lib = _time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
-            g, x, gamma, None, None, mean, invstd, True, eps,
-            [True, True, True]), iters)
         # bytes: K1 reads x once and writes y once, K2 reads x and g once
         # and writes dx once (the (C,) vectors are noise); operations:
         # about 8 per element in each, far below the 67 TFLOP/s f32 peak
@@ -521,27 +655,41 @@ def bn_kernel_phase(bnk, dev, seed, configs):
         row = dict(shape=shape, fix_gamma=fix_gamma, relu=relu, count=count,
                    fwd_err=max(e[0] for e in fwd_errs),
                    bwd_err=max(e[0] for e in bwd_errs),
-                   fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain,
-                   fwd_library_ms=fwd_lib, fwd_bound_ms=fwd_bound,
-                   bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
-                   bwd_library_ms=bwd_lib, bwd_bound_ms=bwd_bound)
+                   fwd_ms=times[("fwd", "new")], fwd_plain_ms=fwd_plain,
+                   fwd_library_ms=times[("fwd", "lib")],
+                   fwd_parent_ms=times.get(("fwd", "parent")),
+                   fwd_bound_ms=fwd_bound,
+                   bwd_ms=times[("bwd", "new")], bwd_plain_ms=bwd_plain,
+                   bwd_library_ms=times[("bwd", "lib")],
+                   bwd_parent_ms=times.get(("bwd", "parent")),
+                   bwd_bound_ms=bwd_bound)
         rows.append(row)
-        print("kernel batch_norm %s fix_gamma=%s relu=%s (x%d per step): "
-              "K1 %.4f ms (bound %.4f, %.0f%% of 3.35 TB/s), plain %.4f, "
-              "F.batch_norm %.4f; K2 %.4f ms (bound %.4f, %.0f%%), plain "
+
+        def parent(kind):
+            t = row[kind + "_parent_ms"]
+            return "not measured" if t is None else "%.4f" % t
+
+        print("kernel batch_norm %s fix_gamma=%s relu=%s (x%d per step; "
+              "L2 cold: %d copies of the inputs): K1 %.4f ms (bound %.4f, "
+              "%.0f%% of 3.35 TB/s), parent %s, plain %.4f, F.batch_norm "
+              "%.4f; K2 %.4f ms (bound %.4f, %.0f%%), parent %s, plain "
               "%.4f, native_batch_norm_backward %.4f; max_abs_err K1 %.3g "
-              "K2 %.3g (scaled %.2g / %.2g)"
-              % (shape, fix_gamma, relu, count, fwd_ms, fwd_bound,
-                 100 * fwd_bound / fwd_ms, fwd_plain, fwd_lib, bwd_ms,
-                 bwd_bound, 100 * bwd_bound / bwd_ms, bwd_plain, bwd_lib,
-                 row["fwd_err"], row["bwd_err"],
-                 max(e[1] for e in fwd_errs), max(e[1] for e in bwd_errs)),
-              flush=True)
-        del x, g, y, dx, plain
+              "K2 %.3g (scaled %.2g / %.2g); plan K1 %s; K2 %s"
+              % (shape, fix_gamma, relu, count, len(copies), row["fwd_ms"],
+                 fwd_bound, 100 * fwd_bound / row["fwd_ms"], parent("fwd"),
+                 fwd_plain, row["fwd_library_ms"], row["bwd_ms"], bwd_bound,
+                 100 * bwd_bound / row["bwd_ms"], parent("bwd"), bwd_plain,
+                 row["bwd_library_ms"], row["fwd_err"], row["bwd_err"],
+                 max(e[1] for e in fwd_errs), max(e[1] for e in bwd_errs),
+                 _plan_text(plans[0]), _plan_text(plans[1])), flush=True)
+        del x, g, copies, fwd_args, bwd_args
     torch.cuda.empty_cache()
 
-    def step_total(key):
-        return sum(r[key] * r["count"] for r in rows)
+    def step_total(key, keep=lambda r: True):
+        return bn_step_total(rows, key, keep)
+
+    def not_data(r):
+        return r["shape"][1] != 3
 
     totals = {}
     for kind in ("fwd", "bwd"):
@@ -551,14 +699,20 @@ def bn_kernel_phase(bnk, dev, seed, configs):
             plain_ms=step_total(kind + "_plain_ms"),
             bound_ms=step_total(kind + "_bound_ms"), bound_by="bytes",
             library_ms=step_total(kind + "_library_ms"))
-        print("kernel batch_norm %s, summed over the %d BatchNorms of one "
-              "b%d step: kernel %.3f ms, bound %.3f ms, plain %.3f ms, "
-              "library %.3f ms" % ("K1" if kind == "fwd" else "K2",
-                                   sum(r["count"] for r in rows),
-                                   TRAIN_BATCH, totals[kind]["ms"],
-                                   totals[kind]["bound_ms"],
-                                   totals[kind]["plain_ms"],
-                                   totals[kind]["library_ms"]), flush=True)
+        for keep, what in ((lambda r: True, "the %d BatchNorms of one b%d "
+                            "step" % (sum(r["count"] for r in rows),
+                                      TRAIN_BATCH)),
+                           (not_data, "the %d BatchNorms outside bn_data"
+                            % sum(r["count"] for r in rows if not_data(r)))):
+            parent = step_total(kind + "_parent_ms", keep)
+            print("kernel batch_norm %s, summed over %s: kernel %.3f ms, "
+                  "bound %.3f ms, parent %s, plain %.3f ms, library %.3f ms"
+                  % ("K1" if kind == "fwd" else "K2", what,
+                     step_total(kind + "_ms", keep),
+                     step_total(kind + "_bound_ms", keep),
+                     "not measured" if parent is None else "%.3f ms" % parent,
+                     step_total(kind + "_plain_ms", keep),
+                     step_total(kind + "_library_ms", keep)), flush=True)
     return rows, totals
 
 
@@ -1285,11 +1439,15 @@ def lstm_parity_phase(mx, seed):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-bn", default=os.path.join(
+        ROOT, "build", "bn_parent", "batch_norm.cu"),
+        help="a copy of csrc/batch_norm.cu before the resident path, "
+        "timed beside the kernels (not measured when absent)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.ops import attention as att
@@ -1309,7 +1467,9 @@ def main():
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
+    parent_build = start_parent_bn_build(args.parent_bn)
     _kernels.build_all()
+    parent_bn = finish_parent_bn_build(parent_build)
     print("kernels built in %.2f s" % (time.perf_counter() - t0), flush=True)
     for lib in _kernels.SOURCES:
         for line in _kernels.build_log(lib).splitlines():
@@ -1321,7 +1481,8 @@ def main():
     if sum(configs.values()) != 51:
         raise RuntimeError("ResNet-50 has %d BatchNorms, expected 51"
                            % sum(configs.values()))
-    _bn_rows, bn_totals = bn_kernel_phase(bnk, dev, args.seed, configs)
+    _bn_rows, bn_totals = bn_kernel_phase(bnk, dev, args.seed, configs,
+                                          parent_bn)
     lstm_rows = lstm_kernel_phase(rk, dev, args.seed)
     launches = serving_phase(mx, att, dev, args.seed)
     k1_launches, k2_launches = training_phase(mx, bnk, args.seed,

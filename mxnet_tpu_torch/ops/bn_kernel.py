@@ -9,7 +9,10 @@
   ``bn_pallas.py::_bn_fwd_kernel`` and ``::_bn_bwd_kernel``; the source
   says what bounds them and how the design meets that.  Taken for CUDA
   tensors: they launch the kernel or raise.  ``.launches`` on each counts
-  its launches (one launch = the three CUDA kernels of one call).
+  its launches (one launch = one call: one CUDA kernel where a channel
+  fits a thread-block cluster's shared memory, three on the chunked path
+  of larger channels).
+* :func:`bn_plan` — which of the two layouts a shape gets on a card.
 * :func:`bn_train` — the public entry, a :class:`torch.autograd.Function`
   whose forward returns ``(y, mean, var)`` and whose backward ignores the
   cotangents of mean and var (they feed only the moving-stat update, made
@@ -33,7 +36,7 @@ from .. import _kernels
 from ..base import MXNetError
 
 __all__ = ["bn_fwd_plain", "bn_bwd_plain", "bn_fwd_cuda", "bn_bwd_cuda",
-           "bn_train", "BatchNormTrain"]
+           "bn_plan", "bn_train", "BatchNormTrain"]
 
 def _view(t, ndim):
     """(C,) -> (1, C, 1, ...) for broadcasting against NC[spatial]."""
@@ -191,6 +194,36 @@ def bn_bwd_cuda(x, g, mean, var, gamma, beta, eps, fix_gamma, relu=False):
                          "error %d" % err)
     bn_bwd_cuda.launches += 1
     return dx, dgamma, dbeta
+
+
+def bn_plan(N, C, S, bwd, device):
+    """How K1 (``bwd=False``) or K2 lays out input ``(N, C, S)`` (S the
+    spatial dims flattened) on ``device``: ``path`` ("resident": one
+    channel per thread-block cluster, held in shared memory; "chunked":
+    three kernels over (chunk, channel) blocks), CTAs per cluster,
+    channels per CTA, strips of S per CTA, clusters launched, clusters
+    the card holds at once, shared memory per CTA.  On the chunked path
+    a "cluster" is one block of its first kernel."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise MXNetError("bn_plan reports the kernels' layout on a CUDA "
+                         "device, got %s" % device)
+    fn = _kernels.load("batch_norm").mxtt_bn_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_longlong] * 3 + [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    with torch.cuda.device(device):
+        err = fn(N, C, S, int(bool(bwd)), out)
+    if err != 0:
+        raise MXNetError("batch norm plan failed for (%d, %d, %d): CUDA "
+                         "error %d" % (N, C, S, err))
+    plan = dict(zip(("resident", "ctas_per_cluster", "channels_per_cta",
+                     "strips_per_cta", "clusters", "active_clusters",
+                     "smem_bytes"), out))
+    plan["path"] = "resident" if plan.pop("resident") else "chunked"
+    return plan
 
 
 #: launches of kernels K1 and K2 in this process (reset freely)

@@ -220,3 +220,10 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(make, match):
     vec = torch.zeros(c)
     with pytest.raises(tmx.MXNetError, match=match):
         bn_kernel._check_inputs(x, (("gamma", vec), ("beta", vec)))
+
+
+def test_bn_plan_needs_a_cuda_device():
+    """The layout report is of a card; for the CPU it raises before it
+    would build the kernels."""
+    with pytest.raises(tmx.MXNetError, match="CUDA device"):
+        bn_kernel.bn_plan(128, 64, 56 * 56, False, "cpu")

@@ -163,6 +163,19 @@ def _assert_close_scaled(got, want, tol=1e-4):
     ((16, 64, 13, 11), False, True, 0.0),       # odd spatial
     ((6, 40, 5), True, True, 1.0),              # fix_gamma + ReLU, 3D
     ((9, 7), False, False, 0.0),                # 2D
+    # one shape per plan of the resident path (bn_plan): a 56x56 channel
+    # on 8-CTA (K1) and 16-CTA (K2) clusters, 28x28 on 2 and 4, one CTA a
+    # channel at 14x14 and 7x7 (4-byte copies), several channels a CTA
+    ((128, 4, 56, 56), False, True, 0.0),
+    ((128, 4, 28, 28), False, True, 0.0),
+    ((128, 16, 14, 14), False, True, 0.0),
+    ((128, 64, 7, 7), False, True, 0.0),
+    ((8, 2112, 4, 4), False, True, 0.0),
+    ((8, 2112, 3, 3), True, False, 0.0),
+    # one strip too large for 16 CTAs: K1 on 9-CTA clusters and K2
+    # chunked, then both chunked
+    ((129, 4, 56, 56), False, True, 0.0),
+    ((257, 2, 56, 56), False, True, 0.0),
 ])
 def test_bn_kernels_match_plain(cuda_device, shape, fix_gamma, relu, offset):
     rs = np.random.RandomState(4)
@@ -193,11 +206,15 @@ def test_bn_kernels_match_plain(cuda_device, shape, fix_gamma, relu, offset):
         _assert_close_scaled(got, want)
     assert (bn_kernel.bn_fwd_cuda.launches,
             bn_kernel.bn_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
-    # deterministic: no atomics in the statistics
+    # deterministic: no atomics in the statistics or the sums
     y2, mean2, var2 = bn_kernel.bn_fwd_cuda(x, gamma, beta, 1e-3, fix_gamma,
                                             relu)
     assert torch.equal(y, y2) and torch.equal(mean, mean2) \
         and torch.equal(var, var2)
+    dx2, dg2, db2 = bn_kernel.bn_bwd_cuda(x, g, mean, var, gamma, beta, 1e-3,
+                                          fix_gamma, relu)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2) \
+        and torch.equal(db, db2)
 
 
 @pytest.mark.cuda
@@ -219,7 +236,53 @@ def test_bn_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         bn_kernel._work(lib, x, 1, 70000, 1, bwd=False)
     with pytest.raises(mx.MXNetError, match="does not take"):
         bn_kernel._work(lib, x, 2 ** 16, 1, 2 ** 15, bwd=True)
-    assert bn_kernel._work(lib, x, 4, 3, 25, bwd=True).numel() == 3 * 2 + 9
+    # the resident path needs none; the chunked path 2 floats per (channel,
+    # 4096-element chunk), then 2 (K1) or 3 (K2) per channel
+    assert bn_kernel._work(lib, x, 4, 3, 25, bwd=True).numel() == 0
+    chunks = 128 * 50176 // 4096
+    assert bn_kernel._work(lib, x, 128, 3, 50176, bwd=False).numel() \
+        == 3 * chunks * 2 + 3 * 2
+    assert bn_kernel._work(lib, x, 128, 3, 50176, bwd=True).numel() \
+        == 3 * chunks * 2 + 3 * 3
+
+
+#: the 13 BatchNorm inputs of the ResNet-50 b128 step as (N, C, S)
+_RESNET50_BN = [(128, 3, 224 * 224), (128, 64, 112 * 112)] + [
+    (128, c, s * s) for s, cs in ((56, (64, 128, 256)), (28, (128, 256, 512)),
+                                  (14, (256, 512, 1024)), (7, (512, 2048)))
+    for c in cs]
+
+
+@pytest.mark.cuda
+def test_bn_plan(cuda_device):
+    """The resident path takes every BatchNorm of the ResNet-50 step but
+    bn_data and bn0, on the clusters the kernel source's note gives, and
+    the card holds at least one cluster of every plan."""
+    want = {224 * 224: (None, None), 112 * 112: (None, None),
+            56 * 56: (8, 16), 28 * 28: (2, 4), 14 * 14: (1, 1),
+            7 * 7: (1, 1)}
+    for n, c, s in _RESNET50_BN:
+        for bwd in (False, True):
+            plan = bn_kernel.bn_plan(n, c, s, bwd, cuda_device)
+            k = want[s][bwd]
+            assert plan["path"] == ("chunked" if k is None else "resident"), \
+                (n, c, s, bwd, plan)
+            if k is not None:
+                assert plan["ctas_per_cluster"] == k, (n, c, s, bwd, plan)
+                assert plan["strips_per_cta"] == n // k
+                assert plan["clusters"] * plan["channels_per_cta"] >= c
+                assert plan["smem_bytes"] <= 200 * 1024
+            assert plan["clusters"] > 0 and plan["active_clusters"] > 0, \
+                (n, c, s, bwd, plan)
+    # the test shapes of test_bn_kernels_match_plain reach the other plans
+    assert bn_kernel.bn_plan(129, 4, 3136, False, cuda_device)[
+        "ctas_per_cluster"] == 9
+    assert bn_kernel.bn_plan(129, 4, 3136, True, cuda_device)["path"] \
+        == "chunked"
+    assert bn_kernel.bn_plan(257, 2, 3136, False, cuda_device)["path"] \
+        == "chunked"
+    small = bn_kernel.bn_plan(8, 2112, 16, True, cuda_device)
+    assert small["path"] == "resident" and small["channels_per_cta"] > 1
 
 
 def _resnet50_step(net, ctx, x, y):

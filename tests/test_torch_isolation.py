@@ -41,6 +41,7 @@ def _py_files():
                 yield os.path.join(dirpath, f)
     yield os.path.join(_ROOT, "chip_smoke.py")
     yield os.path.join(_ROOT, "chip_lstm_costs.py")
+    yield os.path.join(_ROOT, "chip_bn_costs.py")
 
 
 def test_sources_import_no_jax_and_no_mxnet_tpu():
