@@ -14,27 +14,27 @@ BatchNorm inputs, printing each shape's plan beside its times:
 
 * ``as built``: a 56x56 channel on 8 CTAs (K1) and on 16 CTAs holding x
   and g (K2), at most 200 KiB of shared memory a CTA;
-* ``K2 reads g twice``: K2 holds only x, so a 56x56 channel takes 8 CTAs,
-  and reads g from device memory in both of its passes;
 * ``CTAs of 100 KiB``: every resident CTA holds at most 100 KiB, so two
   share an SM (K1 at 56x56 on 16 CTAs; K2 at 56x56 no longer fits 16 and
   takes the chunked path);
 * ``K1 on 512 threads``, ``K2 on 256 threads``: the other thread count
-  (as built K1 runs 256 threads a CTA, K2 512).
+  (as built K1 runs 256 threads a CTA, K2 512);
+* ``K2 without its 7x7 bound``: K2's 4-byte-copy kernel (7x7 strips)
+  without the launch bound of three CTAs an SM, so nvcc picks its
+  registers freely.
 
 Prints the card's name and power limit first.  Exits non-zero without a
 card.
 """
 
-import ctypes
 import os
+import re
 import subprocess
 import sys
 
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(ROOT, "build", "bn_costs")
 SHAPES = [(128, 256, 56, 56), (128, 64, 56, 56), (128, 512, 28, 28),
           (128, 1024, 14, 14), (128, 256, 14, 14), (128, 2048, 7, 7),
           (128, 512, 7, 7)]
@@ -43,44 +43,52 @@ ROUNDS = 2
 #: (old, new) edits, each of which must match the source exactly once
 VARIANTS = {
     "as built": [],
-    "K2 reads g twice": [("constexpr bool K2_G_RESIDENT = true;",
-                          "constexpr bool K2_G_RESIDENT = false;")],
     "CTAs of 100 KiB": [("constexpr long long CTA_BYTES = 200 * 1024;",
                          "constexpr long long CTA_BYTES = 100 * 1024;")],
     "K1 on 512 threads": [("constexpr int RT_FWD = 256;",
                            "constexpr int RT_FWD = 512;")],
     "K2 on 256 threads": [("constexpr int RT_BWD = 512;",
                            "constexpr int RT_BWD = 256;")],
+    "K2 without its 7x7 bound": [(
+        "__launch_bounds__(RT_BWD, VEC == 1 ? 3 : 1)",
+        "__launch_bounds__(RT_BWD)")],
 }
 
 
-def build(nvcc, flags):
-    """One library per variant, all nvcc runs started together."""
+def sources():
+    """(variant, source text) for each variant of the committed source."""
     with open(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
                            "batch_norm.cu")) as f:
         src = f.read()
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    out = []
+    for name, edits in VARIANTS.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError("variant %r: %r matches %d times"
                                    % (name, old, text.count(old)))
             text = text.replace(old, new)
-        path = os.path.join(OUT, "v%d.cu" % i)
-        with open(path, "w") as f:
-            f.write(text)
-        procs[name] = (subprocess.Popen(
-            [nvcc] + flags + ["-o", path[:-3] + ".so", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), path)
-    libs = {}
-    for name, (proc, path) in procs.items():
-        log = proc.communicate()[0].decode()
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for %r:\n%s" % (name, log))
-        libs[name] = ctypes.CDLL(path[:-3] + ".so")
-    return libs
+        out.append((name, text))
+    return out
+
+
+def registers(i):
+    """Registers of each resident kernel in the i-th variant's build, from
+    its ptxas report, as ``{"K1<4>": n, ...}`` (<4>: 16-byte copies)."""
+    out, kernel = {}, None
+    with open(os.path.join(ROOT, "build", "bn_costs", "v%d.log" % i)) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '\S*bn_(fwd|bwd)_"
+                          r"residentILi(\d)", line)
+            if m:
+                kernel = "%s<%s>" % ("K1" if m.group(1) == "fwd" else "K2",
+                                     m.group(2))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out[kernel] = int(m.group(1))
+                kernel = None
+    return out
 
 
 def main():
@@ -97,7 +105,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print("nvidia-smi: %s" % smi, flush=True)
-    libs = build(_kernels._nvcc(), _kernels.NVCC_FLAGS)
+    libs = _kernels.build_variants("bn_costs", sources())
+    for i, name in enumerate(libs):
+        print("registers %s: %s" % (name, ", ".join(
+            "%s %d" % kv for kv in sorted(registers(i).items()))), flush=True)
     dev = torch.device("cuda", 0)
     eps = 2e-5
     for shape in SHAPES:

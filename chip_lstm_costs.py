@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(ROOT, "build", "lstm_costs")
 N, H, TS, ROUNDS, ITERS = 32, 200, (10, 60), 3, 50
 
 #: (old, new) edits, each of which must match the source exactly once
@@ -85,32 +84,21 @@ VARIANTS = {"as built": [], "one CTA per SM": PAD,
             "no product, no exchange": NO_PRODUCT + NO_EXCHANGE}
 
 
-def build(nvcc, flags):
-    """One library per variant, all nvcc runs started together."""
+def sources():
+    """(variant, source text) for each variant of the committed source,
+    every one with the %smid record."""
     with open(os.path.join(ROOT, "mxnet_tpu_torch", "csrc", "lstm.cu")) as f:
         src = f.read()
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    out = []
+    for name, edits in VARIANTS.items():
         text = src
         for old, new in SMID + edits:
             if text.count(old) != 1:
                 raise RuntimeError("variant %r: %r matches %d times"
                                    % (name, old, text.count(old)))
             text = text.replace(old, new)
-        path = os.path.join(OUT, "v%d.cu" % i)
-        with open(path, "w") as f:
-            f.write(text + SMID_EXPORT)
-        procs[name] = (subprocess.Popen(
-            [nvcc] + flags + ["-o", path[:-3] + ".so", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), path)
-    libs = {}
-    for name, (proc, path) in procs.items():
-        log = proc.communicate()[0].decode()
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for %r:\n%s" % (name, log))
-        libs[name] = ctypes.CDLL(path[:-3] + ".so")
-    return libs
+        out.append((name, text + SMID_EXPORT))
+    return out
 
 
 def main():
@@ -126,7 +114,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print("nvidia-smi: %s" % smi, flush=True)
-    libs = build(_kernels._nvcc(), _kernels.NVCC_FLAGS)
+    libs = _kernels.build_variants("lstm_costs", sources())
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     inputs = {}

@@ -99,8 +99,8 @@ Exits non-zero, printing no result, without a card or outside the repo.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
-import ctypes
 import json
 import math
 import os
@@ -502,36 +502,19 @@ def _cold_time_ms(fn, inputs, iters, warmup=2):
     return t0.elapsed_time(t1) / iters
 
 
-def start_parent_bn_build(path):
-    """Starts ``nvcc`` on the BatchNorm kernels of the port before the
-    resident path (a copy of that ``csrc/batch_norm.cu`` at ``path``),
-    into ``build/bn_parent/``; returns (process, library path), or None
-    when there is no such copy."""
+def parent_bn_library(path):
+    """The BatchNorm kernels of the port before the resident path (a copy
+    of that ``csrc/batch_norm.cu`` at ``path``), built into
+    ``build/bn_parent/``; None when there is no such copy."""
     if not path or not os.path.exists(path):
         print("parent BatchNorm kernels: no source at %s, not measured"
               % path, flush=True)
         return None
     from mxnet_tpu_torch import _kernels
 
-    out = os.path.join(ROOT, "build", "bn_parent")
-    os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, "batch_norm_parent.so")
-    proc = subprocess.Popen(
-        [_kernels._nvcc()] + _kernels.NVCC_FLAGS + ["-o", so, path],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, so
-
-
-def finish_parent_bn_build(started):
-    """The loaded library of :func:`start_parent_bn_build`, or None."""
-    if started is None:
-        return None
-    proc, so = started
-    log = proc.communicate()[0].decode()
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed for the parent BatchNorm kernels:\n"
-                           + log)
-    return ctypes.CDLL(so)
+    with open(path) as f:
+        text = f.read()
+    return _kernels.build_variants("bn_parent", [("parent", text)])["parent"]
 
 
 @contextlib.contextmanager
@@ -1467,9 +1450,10 @@ def main():
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    parent_build = start_parent_bn_build(args.parent_bn)
-    _kernels.build_all()
-    parent_bn = finish_parent_bn_build(parent_build)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        parent = pool.submit(parent_bn_library, args.parent_bn)
+        _kernels.build_all()
+        parent_bn = parent.result()
     print("kernels built in %.2f s" % (time.perf_counter() - t0), flush=True)
     for lib in _kernels.SOURCES:
         for line in _kernels.build_log(lib).splitlines():

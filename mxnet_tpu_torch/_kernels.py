@@ -19,7 +19,7 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "build_all", "load", "build_log"]
+__all__ = ["SOURCES", "build_all", "build_variants", "load", "build_log"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -55,30 +55,28 @@ def _paths(name):
     return src, stem + ".so", stem + ".log"
 
 
-def build_all(names=None):
-    """Compile every kernel library that is not built yet, one ``nvcc``
-    per source, all started together.  Returns ``{name: so_path}``."""
-    names = list(SOURCES) if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def _compile(jobs):
+    """Runs ``nvcc`` on every ``(name, source, library, log)`` of ``jobs``,
+    all started together.  A library appears only when its build
+    succeeded; a failed build raises with what ``nvcc`` printed."""
+    if not jobs:
+        return
+    nvcc = _nvcc()
     procs = {}
-    out = {}
+    failed = []
     try:
-        for name in names:
-            src, so, log = _paths(name)
-            out[name] = so
-            if os.path.exists(so):
-                continue
+        for name, src, so, log in jobs:
             tmp = "%s.tmp-%d" % (so, os.getpid())
             logf = open(log, "w")
             procs[name] = (subprocess.Popen(
-                [_nvcc()] + NVCC_FLAGS + ["-o", tmp, src], stdout=logf,
+                [nvcc] + NVCC_FLAGS + ["-o", tmp, src], stdout=logf,
                 stderr=subprocess.STDOUT), logf, tmp, so, log)
-        failed = []
         for name, (proc, logf, tmp, so, log) in procs.items():
             rc = proc.wait()
             logf.close()
             if rc != 0:
-                failed.append(name)
+                with open(log) as f:
+                    failed.append("%s:\n%s" % (name, f.read()))
             else:
                 os.replace(tmp, so)
     finally:
@@ -88,9 +86,42 @@ def build_all(names=None):
                 proc.wait()
             logf.close()
     if failed:
-        raise MXNetError("nvcc failed for %s:\n%s" % (failed, "\n".join(
-            build_log(n) for n in failed)))
+        raise MXNetError("nvcc failed for " + "\n".join(failed))
+
+
+def build_all(names=None):
+    """Compile every kernel library that is not built yet, one ``nvcc``
+    per source, all started together.  Returns ``{name: so_path}``."""
+    names = list(SOURCES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = {}
+    jobs = []
+    for name in names:
+        src, so, log = _paths(name)
+        out[name] = so
+        if not os.path.exists(so):
+            jobs.append((name, src, so, log))
+    _compile(jobs)
     return out
+
+
+def build_variants(subdir, sources):
+    """Builds each ``(name, CUDA source text)`` of ``sources`` with the
+    port's flags into ``build/<subdir>/``, all ``nvcc`` runs started
+    together, and returns ``{name: loaded ctypes library}``; the i-th
+    build's ``nvcc`` report is ``build/<subdir>/v<i>.log``.  For the card
+    scripts that time variants of a kernel source, or an older copy of
+    one, beside the port's own build."""
+    out = os.path.join(os.path.dirname(BUILD_DIR), subdir)
+    os.makedirs(out, exist_ok=True)
+    jobs = []
+    for i, (name, text) in enumerate(sources):
+        stem = os.path.join(out, "v%d" % i)
+        with open(stem + ".cu", "w") as f:
+            f.write(text)
+        jobs.append((name, stem + ".cu", stem + ".so", stem + ".log"))
+    _compile(jobs)
+    return {name: ctypes.CDLL(so) for name, _src, so, _log in jobs}
 
 
 def build_log(name):

@@ -86,7 +86,6 @@ constexpr long long CTA_BYTES = 200 * 1024;       // a CTA's share of a channel
 constexpr long long SMALL_CTA_BYTES = 48 * 1024;  // a CTA of several channels
 constexpr int SMEM_LIMIT = 232448;      // shared memory one block may use
 constexpr int STATIC_SMEM = 1024;       // kept for the kernels' static arrays
-constexpr bool K2_G_RESIDENT = true;    // K2 holds g beside x (else reads g twice)
 constexpr int MAX_DEVICES = 64;
 
 // Offset of element i (0 <= i < N*S) of channel c in NC[S] layout.
@@ -251,19 +250,6 @@ __device__ __forceinline__ void ld(float (&r)[VEC], const float* p) {
     r[3] = t.w;
   } else {
     r[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void ldg(float (&r)[VEC], const float* p) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    r[0] = t.x;
-    r[1] = t.y;
-    r[2] = t.z;
-    r[3] = t.w;
-  } else {
-    r[0] = __ldg(p);
   }
 }
 
@@ -464,10 +450,12 @@ __device__ __forceinline__ BwdCoef bwd_coef(const float* mean,
   return k;
 }
 
-// The same grid as bn_fwd_resident.  GRES: g is held beside x in shared
-// memory; else g is read from device memory in both passes.
-template <int VEC, bool GRES>
-__global__ void __launch_bounds__(RT_BWD)
+// The same grid as bn_fwd_resident; a CTA holds g beside x.  At VEC = 1
+// (7x7 strips, 49 KB a CTA) the bound of three CTAs an SM holds K2 to 40
+// registers; left to itself nvcc takes 52, two CTAs fit an SM, and the
+// 7x7 shapes run ~10% slower (chip_bn_costs.py).
+template <int VEC>
+__global__ void __launch_bounds__(RT_BWD, VEC == 1 ? 3 : 1)
 bn_bwd_resident(const float* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ mean, const float* __restrict__ var,
                 const float* __restrict__ gamma,
@@ -478,16 +466,15 @@ bn_bwd_resident(const float* __restrict__ x, const float* __restrict__ g,
   extern __shared__ __align__(16) float part[];
   __shared__ uint64_t bar[MAX_CPC];
   __shared__ double2 parts[MAX_CL];  // (sum g', sum g' * xhat) of each part
-  constexpr int PLANES = GRES ? 2 : 1;
   const int rank = kcl > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int c0 = (int)(blockIdx.x / kcl) * cpc;
   const int nch = min(cpc, C - c0);
   const int n0 = rank * spc, ns = min(spc, N - n0);
   const int sv = S / VEC, units = ns * sv;
-  const size_t pitch = (size_t)PLANES * spc * S;
+  const size_t pitch = (size_t)2 * spc * S;
   constexpr int NTH = RT_BWD;
-  load_channels<VEC, NTH, PLANES>(part, x, g, c0, nch, pitch, C, S, n0, ns,
-                                  spc, bar);
+  load_channels<VEC, NTH, 2>(part, x, g, c0, nch, pitch, C, S, n0, ns,
+                             spc, bar);
   if (kcl > 1) cluster_arrive_relaxed();
   const float m_f = (float)((long long)N * S);
   for (int ch = 0; ch < nch; ++ch) {
@@ -496,19 +483,11 @@ bn_bwd_resident(const float* __restrict__ x, const float* __restrict__ g,
     const float* pg = px + (size_t)spc * S;
     const BwdCoef k = bwd_coef(mean, var, gamma, beta, c, eps, fix_gamma);
     wait_channel<VEC>(bar, ch);
-    // g' of unit q at (w.j, w.v): from shared memory or device memory
-    auto load_g = [&](float (&gv)[VEC], int q, const Walk& w) {
-      if constexpr (GRES)
-        ld<VEC>(gv, pg + q * VEC);
-      else
-        ldg<VEC>(gv, g + ((long long)(n0 + w.j) * C + c) * S + w.v * VEC);
-    };
     float sg = 0.f, sgx = 0.f;
-    Walk w(threadIdx.x, sv, NTH);
-    for (int q = threadIdx.x; q < units; q += NTH, w.step()) {
+    for (int q = threadIdx.x; q < units; q += NTH) {
       float xv[VEC], gv[VEC];
       ld<VEC>(xv, px + q * VEC);
-      load_g(gv, q, w);
+      ld<VEC>(gv, pg + q * VEC);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         if (relu && !(pre_act(xv[i], k.scale, k.shift) > 0.f)) gv[i] = 0.f;
@@ -544,7 +523,7 @@ bn_bwd_resident(const float* __restrict__ x, const float* __restrict__ g,
     for (int q = threadIdx.x; q < units; q += NTH, u.step()) {
       float xv[VEC], gv[VEC];
       ld<VEC>(xv, px + q * VEC);
-      load_g(gv, q, u);
+      ld<VEC>(gv, pg + q * VEC);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         if (relu && !(pre_act(xv[i], k.scale, k.shift) > 0.f)) gv[i] = 0.f;
@@ -740,13 +719,11 @@ struct Plan {
   size_t smem = 0;
 };
 
-inline int planes_of(int bwd) { return bwd && K2_G_RESIDENT ? 2 : 1; }
-
 // The plan for (N, C, S) from the shape alone (sms = the card's SM count;
 // 0 leaves cpc at 1, which does not change the path).
 Plan make_plan(long long N, long long C, long long S, int bwd, int sms) {
   Plan p;
-  const long long row = S * 4 * planes_of(bwd);  // bytes of one strip
+  const long long row = S * 4 * (bwd ? 2 : 1);  // bytes of a strip (K2: x, g)
   for (long long k = 1; k <= MAX_CL && k <= N; ++k) {
     const long long spc = (N + k - 1) / k;
     if (spc * row <= CTA_BYTES) {
@@ -783,7 +760,7 @@ const void* fwd_kernel() {
 
 template <int VEC>
 const void* bwd_kernel() {
-  return (const void*)bn_bwd_resident<VEC, K2_G_RESIDENT>;
+  return (const void*)bn_bwd_resident<VEC>;
 }
 
 // Once per device: lets the resident kernels take their shared memory and
@@ -984,12 +961,12 @@ extern "C" int mxtt_bn_bwd(const float* x, const float* g, const float* mean,
   resident_config(&cfg, &attr, p, 1, st);
   if (S % 4 == 0 && aligned16(x) && aligned16(g) && aligned16(dx))
     err = (int)cudaLaunchKernelEx(
-        &cfg, bn_bwd_resident<4, K2_G_RESIDENT>, x, g, mean, var, gamma,
+        &cfg, bn_bwd_resident<4>, x, g, mean, var, gamma,
         beta, dx, dgamma, dbeta, N, C, S, p.k, p.spc, p.cpc, eps, fix_gamma,
         relu);
   else
     err = (int)cudaLaunchKernelEx(
-        &cfg, bn_bwd_resident<1, K2_G_RESIDENT>, x, g, mean, var, gamma,
+        &cfg, bn_bwd_resident<1>, x, g, mean, var, gamma,
         beta, dx, dgamma, dbeta, N, C, S, p.k, p.spc, p.cpc, eps, fix_gamma,
         relu);
   if (err) return err;

@@ -115,6 +115,22 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _kernels.build_all()
 
 
+def test_variant_build_without_nvcc_raises_and_loads_nothing(monkeypatch,
+                                                             tmp_path):
+    """The card scripts' builds of kernel variants need ``nvcc`` as the
+    port's own kernels do; the source is written, no library appears."""
+    from mxnet_tpu_torch import _kernels
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR",
+                        str(tmp_path / "mxnet_tpu_torch"))
+    monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_kernels.os.path, "exists", lambda path: False)
+    with pytest.raises(mx.MXNetError, match="nvcc not found"):
+        _kernels.build_variants("variants", [("as built", "// empty\n")])
+    assert (tmp_path / "variants" / "v0.cu").read_text() == "// empty\n"
+    assert not list((tmp_path / "variants").glob("*.so*"))
+
+
 @pytest.mark.parametrize("shapes,dtype,match", [
     (((1, 2, 8, 160),) * 3, torch.float32, "head_dim"),
     (((1, 2, 8, 64),) * 3, torch.float16, "float32"),
