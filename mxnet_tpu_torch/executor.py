@@ -16,9 +16,23 @@ and returns an :class:`Executor`.
   (head gradients default to ones; ``SoftmaxOutput`` ignores them unless
   ``out_grad``) and writes or adds into ``grad_dict`` per ``grad_req``.
   The graph is freed: one backward per training forward.
+* ``train_sgd(...)`` is the fused step of ``MXNET_FUSE_TRAIN_STEP=1``:
+  forward, backward and the SGD update in one.  On a card its first call
+  runs the step eagerly on a side stream (the warm-up, which also makes
+  every kernel's one-time set-up) and captures it into a
+  ``torch.cuda.CUDAGraph``, cached under ``("train_sgd", names, momentum,
+  rescale, clip, lr/wd groups)``; every later call with that key replays
+  the graph (``graph_replays`` counts them).  The graph reads and writes
+  the bound arrays in place; a call whose arrays are no longer the
+  tensors it was captured on, or with another key, captures anew and
+  frees the old graph (its memory pool is held while it lives).  A
+  capture or replay that fails raises.  On the CPU the same step runs
+  eagerly.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -26,6 +40,7 @@ from .base import MXNetError
 from .context import as_context, gpu
 from .ndarray import NDArray, zeros
 from .ops.nn import _batch_norm
+from .optimizer import sgd_step_tensors
 
 __all__ = ["Executor"]
 
@@ -61,6 +76,43 @@ def _bn_relu_peephole(symbol, nodes):
     return bn_defer, act_fuse
 
 
+def _launch_counted():
+    """Every kernel wrapper that counts its launches in ``.launches``."""
+    from .ops import attention, bn_kernel, rnn_kernel
+
+    return (bn_kernel.bn_fwd_cuda, bn_kernel.bn_bwd_cuda,
+            rnn_kernel.lstm_infer_cuda, rnn_kernel.lstm_fwd_cuda,
+            rnn_kernel.lstm_bwd_cuda, attention.flash_attention_cuda)
+
+
+def _lr_wd_groups(lrs, wds):
+    """``(groups, values)``: the indices that share one ``(lr, wd)``, in
+    order of first appearance, and each group's pair."""
+    first = {}
+    for i, pair in enumerate(zip(lrs, wds)):
+        first.setdefault(pair, []).append(i)
+    return tuple(tuple(v) for v in first.values()), list(first)
+
+
+class _StepGraph:
+    """One captured fused step: the graph, the tensors it was captured on,
+    its static outputs, its lr/wd tensor and the kernel launches it
+    replays."""
+
+    def __init__(self, graph, bound, outputs, hyper, hyper_values,
+                 launches):
+        self.graph = graph
+        self.bound = bound
+        self.outputs = outputs
+        self.hyper = hyper
+        self.hyper_values = hyper_values
+        self.launches = launches
+
+    def current(self, tensors):
+        return len(tensors) == len(self.bound) and all(
+            a is b for a, b in zip(tensors, self.bound))
+
+
 def _grad_req_map(grad_req, arg_names):
     if isinstance(grad_req, str):
         req = {n: grad_req for n in arg_names}
@@ -91,6 +143,41 @@ class Executor:
         self.grad_req = _grad_req_map(grad_req, self.arg_names)
         self.outputs = []
         self._pending = None  # (output tensors, {name: leaf}) for backward
+        self._graphs = {}
+        #: replays of captured fused steps
+        self.graph_replays = 0
+        #: host seconds of the last capture (the warm-up step apart)
+        self.capture_seconds = None
+
+    # run_bulk(return_outputs=False) keeps neither outputs nor gradients:
+    # reading them raises until the next step
+    @property
+    def outputs(self):
+        if self._dropped:
+            raise MXNetError("the outputs of run_bulk(return_outputs=False) "
+                             "are not kept; pass return_outputs=True or "
+                             "'device'")
+        return self._outputs
+
+    @outputs.setter
+    def outputs(self, value):
+        self._outputs = value
+        self._dropped = False
+
+    @property
+    def grad_dict(self):
+        if self._dropped:
+            raise MXNetError("the gradients of run_bulk(return_outputs="
+                             "False) are not kept")
+        return self._grad_dict
+
+    @grad_dict.setter
+    def grad_dict(self, value):
+        self._grad_dict = value
+
+    def drop_results(self):
+        """Mark outputs and gradients as not kept (``run_bulk``)."""
+        self._dropped = True
 
     arg_arrays = property(lambda s: [s.arg_dict[n] for n in s.arg_names])
     grad_arrays = property(lambda s: [s.grad_dict.get(n)
@@ -99,6 +186,110 @@ class Executor:
 
     def _diff_names(self):
         return [n for n in self.arg_names if self.grad_req[n] != "null"]
+
+    # -- the fused step -----------------------------------------------------
+    def _sgd_body(self, names, moms, groups, hyper, momentum, rescale, clip):
+        """Forward, backward and the SGD update; returns the output
+        tensors.  Nothing in it reads a value back to the host."""
+        self.forward(is_train=True)
+        outs = [o._t for o in self._outputs]
+        self.backward()
+        with torch.no_grad():
+            sgd_step_tensors([self.arg_dict[n]._t for n in names],
+                             [self._grad_dict[n]._t for n in names],
+                             [m._t for m in moms], groups, hyper, momentum,
+                             rescale, clip)
+        return outs
+
+    def _bound_tensors(self, names, moms):
+        """Every tensor a captured step reads or writes in place."""
+        return ([self.arg_dict[n]._t for n in self.arg_names]
+                + [self._grad_dict[n]._t for n in names]
+                + [self.aux_dict[n]._t for n in self.aux_names]
+                + [m._t for m in moms])
+
+    def train_sgd(self, names, moms, lrs, wds, momentum, rescale, clip):
+        """One fused step: forward, backward (every gradient ``write``)
+        and SGD(-momentum) on the parameters ``names`` with momenta
+        ``moms`` (NDArrays, empty without momentum) and per-parameter
+        ``lrs``/``wds`` (floats).  The inputs are the bound arrays.  On a
+        card the step is a CUDA-graph replay after its first call (see
+        the module docstring)."""
+        groups, pairs = _lr_wd_groups(lrs, wds)
+        values = [[p[0] for p in pairs], [p[1] for p in pairs]]
+        dev = self.arg_dict[names[0]]._t.device
+        if dev.type != "cuda":
+            hyper = torch.tensor(values, dtype=torch.float32, device=dev)
+            self._sgd_body(names, moms, groups, hyper, momentum, rescale,
+                           clip)
+            return
+        key = ("train_sgd", tuple(names), momentum, rescale, clip, groups)
+        bound = self._bound_tensors(names, moms)
+        step = self._graphs.get(key)
+        if step is not None and not step.current(bound):
+            step = None  # an array was replaced: never replay
+        stream = torch.cuda.current_stream(dev)
+        if step is None:
+            # one graph at a time: each holds its memory pool for good
+            self._graphs.clear()
+            self._graphs[key] = self._capture(
+                names, moms, groups, values, momentum, rescale, clip, bound,
+                stream)
+            return
+        if step.hyper_values != values:
+            # one small copy from pinned memory, before the replay on the
+            # same stream; the pinned block is not reused before it ran
+            step.hyper.copy_(torch.tensor(values, dtype=torch.float32)
+                             .pin_memory(), non_blocking=True)
+            step.hyper_values = values
+        try:
+            with torch.cuda.stream(stream):
+                step.graph.replay()
+        except Exception as e:  # noqa: BLE001 - no eager fallback
+            raise MXNetError("replay of the captured train step failed: %s"
+                             % e) from e
+        self.graph_replays += 1
+        for fn, n in zip(_launch_counted(), step.launches):
+            fn.launches += n
+        # outputs the caller may keep: the graph's own are overwritten by
+        # the next replay
+        self.outputs = [NDArray(o.clone()) for o in step.outputs]
+
+    def _capture(self, names, moms, groups, values, momentum, rescale, clip,
+                 bound, stream):
+        """The warm-up step (this call's step, run eagerly on a side
+        stream), then the capture of the step on that stream."""
+        dev = stream.device
+        side = torch.cuda.Stream(dev)
+        hyper = torch.tensor(values, dtype=torch.float32).to(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            outs = self._sgd_body(names, moms, groups, hyper, momentum,
+                                  rescale, clip)
+        for o in outs:
+            o.record_stream(stream)
+        counted = _launch_counted()
+        before = [fn.launches for fn in counted]
+        graph = torch.cuda.CUDAGraph()
+        t = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                static = self._sgd_body(names, moms, groups, hyper,
+                                        momentum, rescale, clip)
+        except Exception as e:  # noqa: BLE001 - no eager fallback
+            self._pending = None
+            raise MXNetError("capture of the fused train step failed: %s"
+                             % e) from e
+        finally:
+            # a capture records launches and runs none: they count when
+            # a replay runs them
+            launches = [fn.launches - b for fn, b in zip(counted, before)]
+            for fn, b in zip(counted, before):
+                fn.launches = b
+        self.capture_seconds = time.perf_counter() - t
+        stream.wait_stream(side)
+        self.outputs = [NDArray(o) for o in outs]
+        return _StepGraph(graph, bound, static, hyper, values, launches)
 
     @staticmethod
     def simple_bind(symbol, ctx=None, grad_req="null", type_dict=None,
@@ -140,8 +331,8 @@ class Executor:
                 src = shared_exec.arg_dict.get(n)
                 if src is not None and src.shape == arg_dict[n].shape:
                     arg_dict[n] = src
-                    if n in shared_exec.grad_dict and n in grad_dict:
-                        grad_dict[n] = shared_exec.grad_dict[n]
+                    if n in shared_exec._grad_dict and n in grad_dict:
+                        grad_dict[n] = shared_exec._grad_dict[n]
             for n in aux_names:
                 src = shared_exec.aux_dict.get(n)
                 if src is not None and src.shape == aux_dict[n].shape:
@@ -211,7 +402,7 @@ class Executor:
                 for name, new in new_aux.items():
                     self.aux_dict[name]._t.copy_(new)
         self.outputs = [NDArray(o.detach()) for o in outs]
-        return self.outputs
+        return self._outputs
 
     def backward(self, out_grads=None):
         diff = self._diff_names()
@@ -239,7 +430,7 @@ class Executor:
                                         allow_unused=True)
         with torch.no_grad():
             for name, g in zip(diff, grads):
-                dst = self.grad_dict.get(name)
+                dst = self._grad_dict.get(name)
                 if dst is None:
                     continue
                 if g is None:

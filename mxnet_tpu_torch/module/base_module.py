@@ -2,15 +2,22 @@
 :meth:`BaseModule.fit` with its per-batch loop, :meth:`score`,
 :meth:`predict` and :meth:`forward_backward`.
 
-The JAX package's resilience and device-pipeline options of ``fit``
+The sync-free loop of the JAX package: ``fit`` and ``score`` wrap an
+eligible metric in a :class:`~mxnet_tpu_torch.metric.DeviceMetric`
+(``MXNET_DEVICE_METRIC=0`` keeps it on the host);
+``fit(prefetch_to_device=True)`` (default ``MXNET_DEVICE_PREFETCH``)
+copies batches to the device from a ``DevicePrefetchIter``'s thread and
+closes it when fit ends; ``MXNET_BULK_TRAIN_STEPS=K`` trains through
+``run_bulk`` in chunks of K batches, the metric and the batch-end
+callbacks still taken batch by batch.  The resilience options
 (checkpointing and resume, NaN/anomaly policies, elastic membership,
-integrity audits, device prefetch, monitors) are not ported yet: setting
-one raises.
+integrity audits) and monitors are not ported yet: setting one raises.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import torch
@@ -54,7 +61,9 @@ class BaseModule:
         assert self.binded and self.params_initialized
         if reset:
             eval_data.reset()
-        eval_metric = _as_metric(eval_metric)
+        # wrapped before the reset: a cached wrapper may hold the sums of
+        # an earlier pass, and its reset clears both
+        eval_metric = _metric.as_device(_as_metric(eval_metric))
         eval_metric.reset()
         actual_num_batch = 0
         for nbatch, eval_batch in enumerate(eval_data):
@@ -115,14 +124,15 @@ class BaseModule:
             audit_every_n_batches=None):
         """Train for ``num_epoch - begin_epoch`` epochs: per batch
         forward+backward, the optimizer update, the metric update and the
-        batch-end callbacks; per epoch the metric log, the epoch-end
-        callbacks and, with ``eval_data``, a :meth:`score` pass."""
+        batch-end callbacks (per chunk of K batches under
+        ``MXNET_BULK_TRAIN_STEPS=K``); per epoch the metric log, the
+        epoch-end callbacks and, with ``eval_data``, a :meth:`score`
+        pass."""
         assert num_epoch is not None, "please specify number of epochs"
         unported = {"monitor": monitor,
                     "checkpoint_prefix": checkpoint_prefix,
                     "resume": resume, "nan_policy": nan_policy,
                     "nan_check_period": nan_check_period,
-                    "prefetch_to_device": prefetch_to_device or None,
                     "checkpoint_every_n_batches": checkpoint_every_n_batches,
                     "elastic": elastic or None,
                     "anomaly_policy": anomaly_policy,
@@ -131,6 +141,9 @@ class BaseModule:
             if value is not None:
                 raise MXNetError("fit(%s=%r) is not ported yet"
                                  % (name, value))
+        if prefetch_to_device is None:
+            prefetch_to_device = os.environ.get(
+                "MXNET_DEVICE_PREFETCH", "0") not in ("0", "", "false")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
@@ -141,44 +154,95 @@ class BaseModule:
                             optimizer_params=optimizer_params)
         if validation_metric is None:
             validation_metric = eval_metric
-        validation_metric = _as_metric(validation_metric)
-        eval_metric = _as_metric(eval_metric)
+        validation_metric = _metric.as_device(_as_metric(validation_metric))
+        eval_metric = _metric.as_device(_as_metric(eval_metric))
+        bulk_k = max(1, int(os.environ.get("MXNET_BULK_TRAIN_STEPS", "1")))
+        use_bulk = bulk_k > 1 and hasattr(self, "run_bulk")
+        if use_bulk and not self._full_step_eligible():
+            self.logger.warning(
+                "MXNET_BULK_TRAIN_STEPS=%d has no effect: the fused step "
+                "is not eligible (requires MXNET_FUSE_TRAIN_STEP=1, plain "
+                "SGD, local kvstore); training runs per batch", bulk_k)
+        fit_data = train_data
+        if prefetch_to_device and hasattr(self, "_device_put_batch"):
+            from ..io import DevicePrefetchIter
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = -1
-            for data_batch in train_data:
+            fit_data = DevicePrefetchIter(train_data, self._context[0],
+                                          placer=self._device_put_batch)
+        owns_iter = fit_data is not train_data
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                self._fit_epoch(epoch, fit_data, eval_metric, bulk_k
+                                if use_bulk else 1, batch_end_callback)
+                if epoch_end_callback is not None:
+                    arg_params_, aux_params_ = self.get_params()
+                    for callback in _as_list(epoch_end_callback):
+                        callback(epoch, self.symbol, arg_params_,
+                                 aux_params_)
+                if eval_data:
+                    res = self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch)
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f",
+                                         epoch, name, val)
+                # an owned prefetch wrapper skips the last reset: it would
+                # re-arm the producer, which could take the caller's first
+                # batch after fit
+                if epoch + 1 < num_epoch or not owns_iter:
+                    fit_data.reset()
+            if owns_iter:
+                fit_data.close()
+                train_data.reset()
+        finally:
+            if owns_iter:
+                fit_data.close()
+
+    def _fit_epoch(self, epoch, fit_data, eval_metric, bulk_k,
+                   batch_end_callback):
+        tic = time.time()
+        eval_metric.reset()
+        nbatch = -1
+
+        def batch_end(nbatch, data_batch):
+            _telemetry.inc("fit.batches")
+            if batch_end_callback is not None:
+                param = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                      eval_metric=eval_metric,
+                                      locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(param)
+
+        if bulk_k > 1:
+            # the device metric takes the stacked outputs with no host copy
+            mode = "device" if isinstance(eval_metric, _metric.DeviceMetric) \
+                else True
+            batches = iter(fit_data)
+            while True:
+                chunk = [b for b in (next(batches, None)
+                                     for _ in range(bulk_k)) if b is not None]
+                if not chunk:
+                    break
+                outs = self.run_bulk(chunk, return_outputs=mode)
+                for i, b in enumerate(chunk):
+                    nbatch += 1
+                    eval_metric.update(b.label, [o[i] for o in outs])
+                    batch_end(nbatch, b)
+        else:
+            for data_batch in fit_data:
                 nbatch += 1
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
-                _telemetry.inc("fit.batches")
-                if batch_end_callback is not None:
-                    param = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                          eval_metric=eval_metric,
-                                          locals=locals())
-                    for callback in _as_list(batch_end_callback):
-                        callback(param)
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            toc = time.time()
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
-            _telemetry.inc("fit.epochs")
-            _telemetry.set_gauge("fit.epoch_seconds", toc - tic)
-            if epoch_end_callback is not None:
-                arg_params_, aux_params_ = self.get_params()
-                for callback in _as_list(epoch_end_callback):
-                    callback(epoch, self.symbol, arg_params_, aux_params_)
-            if eval_data:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+                batch_end(nbatch, data_batch)
+        for name, val in eval_metric.get_name_value():
+            self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        toc = time.time()
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch, toc - tic)
+        _telemetry.inc("fit.epochs")
+        _telemetry.set_gauge("fit.epoch_seconds", toc - tic)
 
     # -- parameters -------------------------------------------------------
     @property

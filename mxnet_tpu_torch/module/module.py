@@ -10,21 +10,34 @@ path); other optimizers go through the per-parameter :class:`Updater`.
 ``bind(shared_module=...)`` shares the parameters and their gradient
 arrays with another module by NDArray identity, and
 ``borrow_optimizer`` its optimizer, updater and update states, as
-``BucketingModule`` needs.  Multi-device contexts, meshes and the fused
-single-step ``MXNET_FUSE_TRAIN_STEP``/``run_bulk`` paths are not ported
-yet.
+``BucketingModule`` needs.  Multi-device contexts and meshes are not
+ported yet.
+
+The sync-free step (the JAX package's ``MXNET_FUSE_TRAIN_STEP=1``): when
+:meth:`_full_step_eligible`, ``forward_backward`` only loads the batch
+and ``update`` runs forward, backward and the SGD update as one
+``Executor.train_sgd`` call, on a card one CUDA-graph replay.  Reading
+the outputs or the input gradients in between runs the two-phase step
+instead.  :meth:`run_bulk` runs K such steps with no host sync between
+them.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
+import numpy as np
+import torch
+
+from .. import metric as _metric
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import Context, gpu
 from ..executor import Executor
 from ..initializer import InitDesc, Uniform
 from ..model import _create_kvstore
+from ..ndarray import NDArray
 from .base_module import BaseModule
 
 __all__ = ["Module"]
@@ -69,6 +82,7 @@ class Module(BaseModule):
         self._optimizer = None
         self._kvstore = None
         self._updater = None
+        self._pending_full = False  # a staged fused step
 
     # -- properties -------------------------------------------------------
     @property
@@ -211,7 +225,9 @@ class Module(BaseModule):
 
     # -- compute ----------------------------------------------------------
     def _load_io(self, names, arrays):
-        """Copy a host batch onto the bound arrays (the device copy)."""
+        """Copy a batch into the bound arrays: one copy on the current
+        stream, device to device for a batch a ``DevicePrefetchIter``
+        has already placed."""
         for name, src in zip(names, arrays or []):
             dst = self._exec.arg_dict.get(name)
             if dst is None:
@@ -219,27 +235,179 @@ class Module(BaseModule):
             if tuple(src.shape) != dst.shape:
                 raise MXNetError("input %r shape %s != bound shape %s"
                                  % (name, tuple(src.shape), dst.shape))
-            dst[:] = src
+            t = src._t if isinstance(src, NDArray) else \
+                torch.as_tensor(np.asarray(src))
+            with torch.no_grad():
+                dst._t.copy_(t)
 
-    def forward(self, data_batch, is_train=None):
+    def forward(self, data_batch, is_train=None, _defer=False):
         assert self.binded and self.params_initialized
+        if not _defer:
+            # a staged fused step runs before its batch is overwritten
+            self._materialize_pending()
         if is_train is None:
             is_train = self.for_training
         self._load_io([n for n, _ in self._data_shapes], data_batch.data)
         if self._label_shapes and data_batch.label:
             self._load_io([n for n, _ in self._label_shapes],
                           data_batch.label)
-        self._exec.forward(is_train=is_train)
+        if not _defer:
+            self._exec.forward(is_train=is_train)
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
         self._exec.backward(out_grads=out_grads)
 
+    # -- the fused step ---------------------------------------------------
+    def _update_names(self):
+        return [n for n in self._param_names
+                if self._exec._grad_dict.get(n) is not None]
+
+    def _full_step_eligible(self):
+        """Forward, backward and update as one step: ``MXNET_FUSE_TRAIN_STEP
+        =1``, plain SGD, no kvstore past the local one, no
+        ``inputs_need_grad``, and every parameter gradient ``write``, as
+        in the JAX package (the port has no monitor)."""
+        if os.environ.get("MXNET_FUSE_TRAIN_STEP", "0") != "1":
+            return False
+        if not (self.binded and self.params_initialized
+                and self.optimizer_initialized):
+            return False
+        if type(self._optimizer) is not opt.SGD:
+            return False
+        if self._kvstore is not None or self.inputs_need_grad:
+            return False
+        diff = self._exec._diff_names()
+        return set(diff) == set(self._update_names()) and \
+            all(self._exec.grad_req[n] == "write" for n in diff)
+
+    def forward_backward(self, data_batch):
+        """Stages the batch for the fused step when eligible; ``update()``
+        then runs the whole step."""
+        if self._full_step_eligible():
+            self.forward(data_batch, is_train=True, _defer=True)
+            self._pending_full = True
+            return
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def _materialize_pending(self):
+        """A staged batch is read before ``update()``: run the two-phase
+        forward and backward, so outputs and gradients exist."""
+        if self._pending_full:
+            self._pending_full = False
+            self._exec.forward(is_train=True)
+            self._exec.backward()
+
+    def _prepare_full_step(self, steps):
+        """Momenta created and every update count advanced ``steps``
+        times, then the lr/wd read once: all ``steps`` steps take the lr
+        of the last, as the JAX package's ``run_bulk`` does.  Returns
+        ``(names, moms, lrs, wds)``."""
+        optimizer, updater = self._optimizer, self._updater
+        names = self._update_names()
+        for idx in range(len(names)):
+            if idx not in updater.states:
+                updater.states[idx] = optimizer.create_state(
+                    idx, self._exec.arg_dict[names[idx]])
+        for _ in range(steps):
+            for idx in range(len(names)):
+                optimizer._update_count(idx)
+        moms = [updater.states[i] for i in range(len(names))] \
+            if optimizer.momentum != 0.0 else []
+        return (names, moms, [optimizer._get_lr(i) for i in range(len(names))],
+                [optimizer._get_wd(i) for i in range(len(names))])
+
+    def _train_sgd(self, names, moms, lrs, wds):
+        optimizer = self._optimizer
+        self._exec.train_sgd(names, moms, lrs, wds, optimizer.momentum,
+                             optimizer.rescale_grad, optimizer.clip_gradient)
+
+    def _run_full_step(self):
+        self._pending_full = False
+        if not self._update_names():
+            self._exec.forward(is_train=True)
+            return
+        self._train_sgd(*self._prepare_full_step(1))
+
+    def run_bulk(self, batches, return_outputs=False):
+        """``len(batches)`` fused steps with no host sync between them: on
+        a card, each step is a replay of the captured step after a device
+        copy of its batch into the bound arrays (host batches are first
+        stacked and copied once, from pinned memory).  The update counts
+        advance for the whole chunk before the lr is read, so every step
+        takes the lr of the chunk's last (the JAX package's rule).
+
+        ``return_outputs``: ``False`` keeps no outputs or gradients
+        (reading ``get_outputs()`` or the executor's ``grad_dict`` raises
+        until the next step); ``True`` returns, per output, a numpy array
+        stacked over the steps ``(K, ...)``; ``"device"`` the same stacks
+        as NDArrays on the module's device, with no host copy.  Not
+        eligible for the fused step: per-batch ``forward_backward`` and
+        ``update``."""
+        if not batches:
+            return [] if return_outputs else None
+        if not self._full_step_eligible() or not self._update_names():
+            per_batch = []
+            for b in batches:
+                self.forward_backward(b)
+                self.update()
+                if return_outputs:
+                    per_batch.append([o._t for o in self.get_outputs()])
+            return self._stacked(per_batch, return_outputs)
+        self._pending_full = False
+        names, moms, lrs, wds = self._prepare_full_step(len(batches))
+        inputs = [(n, "data", i) for i, (n, _) in
+                  enumerate(self._data_shapes)]
+        if self._label_shapes:
+            inputs += [(n, "label", i) for i, (n, _) in
+                       enumerate(self._label_shapes)]
+        staged = {n: self._staged(n, [(b.data if kind == "data"
+                                       else b.label)[i] for b in batches])
+                  for n, kind, i in inputs}
+        per_batch = []
+        for k in range(len(batches)):
+            with torch.no_grad():
+                for n, stack in staged.items():
+                    self._exec.arg_dict[n]._t.copy_(stack[k])
+            self._train_sgd(names, moms, lrs, wds)
+            if return_outputs:
+                per_batch.append([o._t for o in self._exec.outputs])
+        if not return_outputs:
+            self._exec.drop_results()
+        return self._stacked(per_batch, return_outputs)
+
+    def _staged(self, name, arrays):
+        """The batches' arrays for input ``name`` as one sequence of
+        tensors on the bound device: device arrays as they are, host
+        arrays stacked into one pinned buffer and copied at once."""
+        dst = self._exec.arg_dict[name]._t
+        ts = [a._t if isinstance(a, NDArray) else
+              torch.as_tensor(np.asarray(a)) for a in arrays]
+        if all(t.device == dst.device for t in ts):
+            return ts
+        stack = torch.stack([t.to(dst.dtype) for t in ts])
+        if dst.is_cuda:
+            stack = stack.pin_memory()
+        return stack.to(dst.device, non_blocking=True)
+
+    @staticmethod
+    def _stacked(per_batch, return_outputs):
+        if not return_outputs:
+            return None
+        stacks = [torch.stack([pb[i] for pb in per_batch])
+                  for i in range(len(per_batch[0]))]
+        if return_outputs == "device":
+            return [NDArray(s) for s in stacks]
+        return [s.cpu().numpy() for s in stacks]
+
     def update(self):
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
-        names = [n for n in self._param_names
-                 if self._exec.grad_dict.get(n) is not None]
+        if self._pending_full:
+            self._run_full_step()
+            return
+        names = self._update_names()
         weights = [self._exec.arg_dict[n] for n in names]
         grads = [self._exec.grad_dict[n] for n in names]
         optimizer, updater = self._optimizer, self._updater
@@ -258,11 +426,31 @@ class Module(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded
+        self._materialize_pending()
         return self._exec.outputs
 
     def get_input_grads(self, merge_multi_context=True):
         assert self.binded and self.inputs_need_grad
+        self._materialize_pending()
         return [self._exec.grad_dict.get(n) for n in self._data_names]
 
     def update_metric(self, eval_metric, labels):
+        if isinstance(eval_metric, _metric.DeviceMetric) and labels \
+                and self._label_shapes:
+            # the labels are already on the device, in the bound arrays
+            bound = [self._exec.arg_dict[n] for n, _ in self._label_shapes
+                     if n in self._exec.arg_dict]
+            if len(bound) == len(labels):
+                labels = bound
         eval_metric.update(labels, self.get_outputs())
+
+    def _device_put_batch(self, name, t):
+        """``DevicePrefetchIter``'s placer: host tensor ``t`` of input
+        ``name`` onto the bound array's device and dtype (a copy that does
+        not block: ``t`` is pinned, the caller's stream is a side
+        stream)."""
+        dst = self._exec.arg_dict.get(name) if self._exec is not None \
+            else None
+        if dst is None:
+            return t
+        return t.to(dst._t.device, dst._t.dtype, non_blocking=True)

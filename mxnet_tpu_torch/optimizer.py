@@ -9,7 +9,9 @@ PyTorch's multi-tensor ``_foreach`` ops, in place:
 ``g = clip(rescale * grad) + wd * p``, ``m = momentum * m - lr * g``,
 ``p += m`` (without momentum ``p -= lr * g``).  ``torch.optim.SGD`` is not
 used: its momentum buffer holds the un-scaled gradient sum, so the two
-differ once the learning rate changes.
+differ once the learning rate changes.  :func:`sgd_step_tensors` is the
+same step with lr and wd read from a device tensor, as a captured CUDA
+graph needs them (a Python float would be baked into the graph).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from .base import Registry
 from .ndarray import zeros
 
 __all__ = ["Optimizer", "SGD", "create", "register", "Updater",
-           "get_updater", "sgd_step_math"]
+           "get_updater", "sgd_step_math", "sgd_step_tensors"]
 
 registry = Registry("optimizer")
 register = registry.register
@@ -35,6 +37,31 @@ def sgd_step_math(params, grads, moms, lrs, wds, momentum, rescale, clip):
         torch._foreach_clamp_max_(g, clip)
     torch._foreach_add_(g, torch._foreach_mul(params, wds))
     torch._foreach_mul_(g, lrs)
+    if momentum != 0.0:
+        torch._foreach_mul_(moms, momentum)
+        torch._foreach_sub_(moms, g)
+        torch._foreach_add_(params, moms)
+    else:
+        torch._foreach_sub_(params, g)
+
+
+def sgd_step_tensors(params, grads, moms, groups, hyper, momentum, rescale,
+                     clip):
+    """:func:`sgd_step_math` with the learning rates and weight decays in
+    a float32 tensor ``hyper`` of shape ``(2, len(groups))`` on the
+    parameters' device: ``groups[j]`` lists the indices of the tensors
+    whose lr is ``hyper[0, j]`` and wd ``hyper[1, j]``.  Each product
+    takes the same float32 factor as the Python-float version, so the two
+    agree bit for bit."""
+    g = torch._foreach_mul(grads, rescale)
+    if clip is not None and clip > 0:
+        torch._foreach_clamp_min_(g, -clip)
+        torch._foreach_clamp_max_(g, clip)
+    for j, idx in enumerate(groups):
+        gj = [g[i] for i in idx]
+        torch._foreach_add_(gj, torch._foreach_mul([params[i] for i in idx],
+                                                   hyper[1, j]))
+        torch._foreach_mul_(gj, hyper[0, j])
     if momentum != 0.0:
         torch._foreach_mul_(moms, momentum)
         torch._foreach_sub_(moms, g)

@@ -48,3 +48,46 @@ def test_bn_step_total_weights_rows_and_leaves_unmeasured_out():
     assert smoke.bn_step_total(rows, "ms", lambda r: r["shape"][1] != 3) \
         == 7 * 0.5
     assert smoke.bn_step_total(rows, "parent_ms") is None
+
+
+def _event(name, start, end, device="CUDA"):
+    from types import SimpleNamespace as NS
+
+    return NS(name=name, device_type=NS(name=device),
+              time_range=NS(start=start, end=end))
+
+
+def test_device_timeline_merges_kernels_and_measures_copies_under_them():
+    """Kernels at 0-100 and 50-150 us and 300-400 us: busy 250 of a 400 us
+    span; a 1 ms-sized copy at 100-350 us runs under kernels for 100 us
+    of its 250; small copies, memsets and host events do not count."""
+    from types import SimpleNamespace as NS
+
+    smoke = _script("chip_smoke")
+    events = [_event("k1", 0, 100), _event("k2", 50, 150),
+              _event("k3", 300, 400),
+              _event("Memcpy HtoD (Pinned -> Device)", 100, 350),
+              _event("Memcpy HtoD (Pinned -> Device)", 10, 12),
+              _event("Memset (Device)", 150, 300),
+              _event("aten::copy_", 0, 1000, device="CPU")]
+    tl = smoke._device_timeline(NS(events=lambda: events))
+    assert tl["span"] == 0.4 and tl["busy"] == 0.25
+    assert tl["idle"] == 1 - 250 / 400
+    assert tl["copies"] == 1 and tl["copy_ms"] == 0.25
+    assert tl["covered"] == 100 / 250
+    assert smoke._device_timeline(NS(events=lambda: events[3:])) is None
+
+
+def test_environment_sets_and_restores(monkeypatch):
+    import os
+
+    smoke = _script("chip_smoke")
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "0")
+    monkeypatch.delenv("MXNET_BULK_TRAIN_STEPS", raising=False)
+    with pytest.raises(KeyError):
+        with smoke.environment(smoke.SYNC_FREE_ENV):
+            assert os.environ["MXNET_FUSE_TRAIN_STEP"] == "1"
+            assert os.environ["MXNET_BULK_TRAIN_STEPS"] == "2"
+            raise KeyError
+    assert os.environ["MXNET_FUSE_TRAIN_STEP"] == "0"
+    assert "MXNET_BULK_TRAIN_STEPS" not in os.environ

@@ -551,3 +551,231 @@ def test_bucketing_step_launches_k5_k6_per_layer_and_k4_on_eval(
                                    atol=1e-5 * np.abs(cu[k]).max(),
                                    err_msg=k)
     np.testing.assert_allclose(gout, cout, rtol=1e-4, atol=1e-6)
+
+
+# -- the sync-free step: CUDA-graph capture and replay ------------------------
+SMALL = dict(units=[1, 1], num_stages=2, filter_list=[8, 16, 32],
+             num_classes=4, image_shape=(3, 40, 40), bottle_neck=True)
+
+
+def _small_batches(n, seed=0):
+    rs = np.random.RandomState(seed)
+    return [mx.io.DataBatch(
+        data=[mx.nd.array(rs.uniform(0, 255, (4, 3, 40, 40))
+                          .astype(np.float32))],
+        label=[mx.nd.array(rs.randint(0, 4, 4).astype(np.float32))])
+        for _ in range(n)]
+
+
+def _small_module(ctx, sched=None):
+    from mxnet_tpu_torch.models import resnet
+
+    mod = mx.mod.Module(resnet.resnet(**SMALL), context=ctx)
+    mod.bind(data_shapes=[("data", (4, 3, 40, 40))],
+             label_shapes=[("softmax_label", (4,))])
+    mx.init.seed(3)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    opt = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+    if sched is not None:
+        opt["lr_scheduler"] = sched
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    return mod
+
+
+def _small_steps(monkeypatch, fused, batches, sched=None, mod=None):
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1" if fused else "0")
+    mod = mod or _small_module(mx.gpu(0), sched)
+    bn_kernel.bn_fwd_cuda.launches = bn_kernel.bn_bwd_cuda.launches = 0
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+    torch.cuda.synchronize()
+    launches = (bn_kernel.bn_fwd_cuda.launches,
+                bn_kernel.bn_bwd_cuda.launches)
+    arg, aux = mx.convert.module_params_to_numpy(mod)
+    arg.update({"aux:" + k: v for k, v in aux.items()})
+    return mod, arg, launches
+
+
+def _assert_steps_agree(got, want):
+    """The captured step against the eager one: the same kernels on the
+    same tensors, so equal up to cuDNN's choice of algorithm (``1e-5``
+    of each tensor's largest magnitude)."""
+    for k in want:
+        np.testing.assert_allclose(
+            got[k], want[k], rtol=1e-5,
+            atol=1e-5 * max(1.0, np.abs(want[k]).max()), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_captured_step_equals_the_eager_step(cuda_device, monkeypatch):
+    """Four fused steps (a warm-up with the capture, then three replays)
+    against four eager steps from the same weights and batches; the
+    replays add the K1/K2 launches they ran (9 BatchNorms a step)."""
+    batches = _small_batches(4)
+    mod, fused, f_launch = _small_steps(monkeypatch, True, batches)
+    _m, eager, e_launch = _small_steps(monkeypatch, False, batches)
+    assert mod._exec.graph_replays == 3 and len(mod._exec._graphs) == 1
+    assert f_launch == e_launch == (36, 36)
+    _assert_steps_agree(fused, eager)
+    assert mod.get_outputs()[0].shape == (4, 4)
+
+
+@pytest.mark.cuda
+def test_scheduler_step_inside_replays_reaches_the_graph(cuda_device,
+                                                         monkeypatch):
+    """The lr drops after update 2, between two replays: the graph reads
+    it from its lr tensor, so the replays follow the eager steps."""
+    batches = _small_batches(4, 1)
+    sched = lambda: mx.lr_scheduler.MultiFactorScheduler(  # noqa: E731
+        step=[2], factor=0.1)
+    mod, fused, _ = _small_steps(monkeypatch, True, batches, sched())
+    _m, eager, _ = _small_steps(monkeypatch, False, batches, sched())
+    (step,) = mod._exec._graphs.values()
+    assert step.hyper[0].cpu().tolist() == pytest.approx([0.005])
+    _assert_steps_agree(fused, eager)
+    # without the drop the replays land elsewhere
+    _m, flat, _ = _small_steps(monkeypatch, False, batches)
+    assert not np.allclose(flat["fc1_weight"], fused["fc1_weight"],
+                           rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_replayed_step_runs_k1_and_k2_on_the_device(cuda_device,
+                                                    monkeypatch):
+    """torch.profiler sees as many BatchNorm kernel executions in one
+    replayed step as in one eager step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = _small_batches(3, 2)
+
+    def bn_kernels(fused):
+        monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1" if fused else "0")
+        mod = _small_module(mx.gpu(0))
+        for b in batches[:2]:
+            mod.forward_backward(b)
+            mod.update()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a few kernels first: the start of the window stays off the step
+            pad = torch.zeros(1, device=cuda_device)
+            for _ in range(20):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            mod.forward_backward(batches[2])
+            mod.update()
+            torch.cuda.synchronize()
+        assert mod._exec.graph_replays == (2 if fused else 0)
+        return sum(e.count for e in prof.key_averages()
+                   if "bn_fwd_" in e.key or "bn_bwd_" in e.key)
+
+    eager = bn_kernels(False)
+    assert eager >= 18
+    assert bn_kernels(True) == eager
+
+
+@pytest.mark.cuda
+def test_new_params_and_optimizer_after_capture_take_effect(cuda_device,
+                                                            monkeypatch):
+    """``set_params`` writes into the captured tensors; a new optimizer
+    brings new momenta, and the step is captured anew rather than
+    replayed into the old ones."""
+    batches = _small_batches(5, 3)
+    rs = np.random.RandomState(4)
+
+    def run(fused):
+        mod, _, _ = _small_steps(monkeypatch, fused, batches[:2])
+        arg, aux = mod.get_params()
+        mod.set_params({k: mx.nd.array(rs.normal(0, 0.05, v.shape)
+                                       .astype(np.float32))
+                        for k, v in sorted(arg.items())}, aux)
+        _small_steps(monkeypatch, fused, batches[2:4], mod=mod)
+        mod.init_optimizer(optimizer="sgd", force_init=True,
+                           optimizer_params={"learning_rate": 0.1,
+                                             "momentum": 0.5})
+        return _small_steps(monkeypatch, fused, batches[4:], mod=mod)
+
+    rs.seed(4)
+    mod, fused, _ = run(True)
+    rs.seed(4)
+    _m, eager, _ = run(False)
+    assert mod._exec.graph_replays == 3  # one capture for each optimizer
+    assert len(mod._exec._graphs) == 1
+    _assert_steps_agree(fused, eager)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_iter_pins_and_copies_on_a_side_stream(cuda_device):
+    x = np.arange(16 * 6, dtype=np.float32).reshape(16, 6)
+    seen = []
+
+    def placer(name, t):
+        seen.append((name, t.is_pinned(), torch.cuda.current_stream(
+            cuda_device)))
+        return t.to(cuda_device, non_blocking=True)
+
+    with mx.io.DevicePrefetchIter(mx.io.NDArrayIter(x, x[:, 0],
+                                                    batch_size=4),
+                                  mx.gpu(0), placer=placer) as it:
+        batches = list(it)
+        side = it._stream
+    assert len(batches) == 4 and len(seen) == 8
+    assert all(pinned and stream == side for _n, pinned, stream in seen)
+    assert side != torch.cuda.current_stream(cuda_device)
+    for i, b in enumerate(batches):
+        assert b.data[0]._t.is_cuda and b.label[0]._t.is_cuda
+        np.testing.assert_array_equal(b.data[0].asnumpy(), x[4 * i:4 * i + 4])
+
+
+@pytest.mark.cuda
+def test_device_metric_takes_host_labels_beside_card_outputs(cuda_device):
+    """Labels from the host join outputs on the card; the sums stay on
+    the card until the read and equal the host metric's."""
+    rs = np.random.RandomState(0)
+    labels = [rs.randint(0, 10, 32).astype(np.float32) for _ in range(3)]
+    preds = [rs.dirichlet(np.ones(10), 32).astype(np.float32)
+             for _ in range(3)]
+    make = lambda: mx.metric.create(  # noqa: E731
+        ["acc", mx.metric.TopKAccuracy(top_k=3), "ce"])
+    dev, host = mx.metric.DeviceMetric(make()), make()
+    for lab, p in zip(labels, preds):
+        dev.update([mx.nd.array(lab)], [mx.nd.array(p, ctx=mx.gpu(0))])
+        host.update([mx.nd.array(lab)], [mx.nd.array(p)])
+    assert dev._acc.is_cuda and dev.sync_count == 0
+    (dn, dv), (hn, hv) = dev.get(), host.get()
+    assert dn == hn and dv[:2] == hv[:2] and dev.sync_count == 1
+    np.testing.assert_allclose(dv[2], hv[2], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_never_runs_eagerly(cuda_device,
+                                                      monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    eligible step raises instead of falling back to the eager path."""
+    from mxnet_tpu_torch.ops import nn
+
+    relu = nn._ACTS["relu"]
+
+    def relu_read_back(x):
+        if x.is_cuda:  # not in the shape inference of the bind
+            return relu(x) * (1.0 + 0.0 * x.sum().item())
+        return relu(x)
+
+    monkeypatch.setitem(nn._ACTS, "relu", relu_read_back)
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Activation(
+        mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=8,
+                              name="fc1"), act_type="relu"),
+        num_hidden=3, name="fc2"), name="softmax")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (4, 5))],
+             label_shapes=[("softmax_label", (4,))])
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.1})
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1")
+    batch = mx.io.DataBatch(data=[mx.nd.array(np.ones((4, 5), np.float32))],
+                            label=[mx.nd.array(np.zeros(4, np.float32))])
+    mod.forward_backward(batch)
+    with pytest.raises(mx.MXNetError, match="capture"):
+        mod.update()
+    assert mod._exec.graph_replays == 0 and not mod._exec._graphs

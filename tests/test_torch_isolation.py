@@ -25,7 +25,10 @@ def _forbidden(module):
 
 def test_import_loads_no_jax_and_no_mxnet_tpu():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serving, "
-            "mxnet_tpu_torch.models\n"
+            "mxnet_tpu_torch.models, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.executor, "
+            "mxnet_tpu_torch.module.module, "
+            "mxnet_tpu_torch.module.base_module\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -42,6 +45,7 @@ def _py_files():
     yield os.path.join(_ROOT, "chip_smoke.py")
     yield os.path.join(_ROOT, "chip_lstm_costs.py")
     yield os.path.join(_ROOT, "chip_bn_costs.py")
+    yield os.path.join(_ROOT, "chip_sync_free_runs.py")
 
 
 def test_sources_import_no_jax_and_no_mxnet_tpu():

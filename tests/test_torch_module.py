@@ -174,7 +174,7 @@ def test_module_entry_points(tmp_path, monkeypatch):
     mod = tmx.mod.Module(net, context=tmx.cpu())
     for kw in ({"checkpoint_prefix": "x"}, {"nan_policy": "raise"},
                {"resume": "auto"}, {"monitor": object()},
-               {"prefetch_to_device": True}, {"elastic": True}):
+               {"elastic": True}):
         with pytest.raises(tmx.MXNetError, match="not ported yet"):
             mod.fit(it, num_epoch=1, **kw)
     mod.bind(it.provide_data, it.provide_label)
