@@ -39,7 +39,9 @@ class Speedometer:
     exponentially smoothed rate (``smoothing`` of history kept per log)
     is logged beside it, and both land in the ``fit.samples_per_sec``
     gauges when telemetry is on.  ``speeds`` keeps every logged
-    instantaneous rate."""
+    instantaneous rate.  The metric is read only when a line is logged,
+    so a :class:`~mxnet_tpu_torch.metric.DeviceMetric` syncs only at that
+    cadence."""
 
     def __init__(self, batch_size, frequent=50, smoothing=0.7,
                  auto_reset=False):
