@@ -239,6 +239,9 @@ class PrefetchingIter(DataIter):
     def _producer(self, i):
         while True:
             self.data_taken[i].wait()
+            # take the signal before producing: a close() that sets it
+            # while the batch is made must not be cleared away after it
+            self.data_taken[i].clear()
             if not self.started:
                 break
             try:
@@ -248,7 +251,6 @@ class PrefetchingIter(DataIter):
             except BaseException as e:  # noqa: BLE001 - raised by next()
                 self._errors[i] = e
                 self.next_batch[i] = None
-            self.data_taken[i].clear()
             self.data_ready[i].set()
 
     def _produce(self, i):

@@ -683,6 +683,19 @@ def test_prefetching_iter_close_joins_its_threads():
     it.close()  # idempotent
 
 
+def test_prefetching_iter_close_while_a_batch_is_made_joins():
+    """``close`` while a producer is inside its sub-iterator's ``next``:
+    the producer sees the stop once that batch is done, and exits."""
+    gate = threading.Event()
+    it = tmx.io.PrefetchingIter(_Boom(fail_at=2, gate=gate))
+    next(it)  # the producer now waits at the gate inside batch 2
+    opener = threading.Timer(0.2, gate.set)
+    opener.start()
+    it.close()
+    opener.join()
+    assert not any(t.is_alive() for t in it.prefetch_threads)
+
+
 @pytest.mark.filterwarnings(
     "ignore::pytest.PytestUnhandledThreadExceptionWarning")
 def test_a_dead_producer_raises_instead_of_hanging():
