@@ -86,9 +86,9 @@
    perturbed by 1e-7; both classic fits take the lr of each chunk's last
    update, the rule ``run_bulk`` keeps).  Prints the chunk times, the
    first step, the step and images/s beside the classic phase's, the
-   syncs per epoch, peak memory, and a profiled epoch from an idle card:
-   the device's idle share and the share of the batch copies' time
-   under kernels.
+   syncs per epoch, peak memory, and a second epoch of the same ``fit``
+   (every step a replay) profiled from an idle card: the device's idle
+   share and the share of the batch copies' time under kernels.
 8. Step parity: the same ResNet-50 weights and batch (b4), one fit step on
    ``gpu(0)`` and on ``cpu()`` (the plain versions).  The first step of a
    random ResNet-50 is ill-conditioned (a 1e-7 input perturbation moves
@@ -1200,11 +1200,12 @@ def sync_free_profiles(mx, bnk, mod, x, y):
     """After the main path: (1) one eager and one replayed step on the
     same module, each under torch.profiler: the replay must run as many
     K1/K2 kernels as the eager step (51 calls: 49 resident, one kernel
-    each, and 2 chunked, three each, a direction); (2) one epoch in three
-    chunks of two replayed steps fed by a DevicePrefetchIter, profiled
-    from an idle card: the device's idle share between its first and last
-    kernel, and how much of the host-to-device copies of the batches ran
-    while kernels of the steps ran."""
+    each, and 2 chunked, three each, a direction); (2) one more epoch of
+    the main path's ``fit`` (the same switches, prefetch, device metric
+    and Speedometer; the graph is captured, so every step replays),
+    profiled from an idle card: the device's idle share between its
+    first and last kernel, and how much of the host-to-device copies of
+    the batches ran while kernels of the steps ran."""
     from torch.profiler import ProfilerActivity, profile
 
     it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)
@@ -1235,48 +1236,73 @@ def sync_free_profiles(mx, bnk, mod, x, y):
                            "eager step %s" % (runs["replayed"],
                                               runs["eager"]))
 
-    with environment(SYNC_FREE_ENV):
-        it.reset()
+    it.reset()
+    metric = mx.metric.CompositeEvalMetric(
+        [mx.metric.Accuracy(), mx.metric.TopKAccuracy(top_k=5)])
+    speed = mx.callback.Speedometer(TRAIN_BATCH, frequent=3)
+    events = []
+
+    def mark(_param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    start = torch.cuda.Event(enable_timing=True)
+    before = mod._exec.graph_replays
+    with environment(SYNC_FREE_ENV), bn_plain_refused(bnk):
         torch.cuda.synchronize()
-        with mx.io.DevicePrefetchIter(it, mx.gpu(0),
-                                      placer=mod._device_put_batch) as pre:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                for _ in range(3):
-                    mod.run_bulk([next(pre) for _ in range(BULK_K)])
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t) * 1e3
-            # a batch pinned, then copied on the iterator's side stream
-            t_host = time.perf_counter()
-            host = batch.data[0]._t.pin_memory()
-            pin_ms = (time.perf_counter() - t_host) * 1e3
-            stream = pre._stream
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            with torch.cuda.stream(stream):
-                ev[0].record(stream)
-                host.to("cuda", non_blocking=True)
-                ev[1].record(stream)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            t = time.perf_counter()
+            # bound, initialized and with its optimizer: fit goes on
+            # training the same module, as a second epoch
+            mod.fit(it, num_epoch=1, eval_metric=metric, kvstore="local",
+                    batch_end_callback=[speed, mark],
+                    prefetch_to_device=True)
             torch.cuda.synchronize()
-            copy_ms = ev[0].elapsed_time(ev[1])
+            wall = (time.perf_counter() - t) * 1e3
+    replays = mod._exec.graph_replays - before
+    steps = len(events)
+    chunk_ms = [start.elapsed_time(events[BULK_K - 1])] + [
+        events[i - BULK_K].elapsed_time(events[i])
+        for i in range(2 * BULK_K - 1, steps, BULK_K)]
+    # a batch pinned, then copied on a side stream
+    t_host = time.perf_counter()
+    host = batch.data[0]._t.pin_memory()
+    pin_ms = (time.perf_counter() - t_host) * 1e3
+    stream = torch.cuda.Stream()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.cuda.stream(stream):
+        ev[0].record(stream)
+        host.to("cuda", non_blocking=True)
+        ev[1].record(stream)
+    torch.cuda.synchronize()
+    copy_ms = ev[0].elapsed_time(ev[1])
+    if replays != steps:
+        raise RuntimeError("the profiled fit replayed %d times in %d steps"
+                           % (replays, steps))
     timeline = _device_timeline(prof)
     if timeline is None:
         print("sync-free profile: the profiler recorded no device time "
               "(not measured)", flush=True)
         return
-    print("sync-free profile of three chunks of %d replayed steps fed by "
-          "the device prefetch (one epoch, from an idle card): wall %.2f ms "
-          "under the profiler; from the first kernel to the last %.2f ms, "
-          "kernels busy %.2f ms, idle share %.1f%%; %d host-to-device batch "
-          "copies on the side stream, %.2f ms in all, %.1f%% of the copy "
-          "time under kernels of the steps (the first batch's copy comes "
-          "before any kernel); one b%d batch pinned in %.2f ms (host "
-          "clock) and copied from pinned memory in %.2f ms (CUDA events)"
-          % (
-              BULK_K, wall, timeline["span"], timeline["busy"],
-              100 * timeline["idle"], timeline["copies"],
-              timeline["copy_ms"], 100 * timeline["covered"], TRAIN_BATCH,
-              pin_ms, copy_ms), flush=True)
+    print("sync-free profile of a second fit epoch (%d steps, all replays, "
+          "chunks of %d, device prefetch, device metric read by the "
+          "Speedometer every 3 batches; from an idle card): wall %.2f ms "
+          "under the profiler (fit's set-up and end of epoch included); "
+          "chunk ms (CUDA events between chunk ends, the first from the "
+          "fit's start) %s; from the first kernel to the last %.2f ms, "
+          "kernels busy %.2f ms (%.2f ms a step), idle share %.1f%%; %d "
+          "host-to-device batch copies on the prefetch's side stream, "
+          "%.2f ms in all, %.1f%% of the copy time under kernels of the "
+          "steps (the first batch's copy comes before any kernel); one b%d "
+          "batch pinned in %.2f ms (host clock) and copied from pinned "
+          "memory in %.2f ms (CUDA events)"
+          % (steps, BULK_K, wall, ["%.2f" % c for c in chunk_ms],
+             timeline["span"], timeline["busy"], timeline["busy"] / steps,
+             100 * timeline["idle"], timeline["copies"],
+             timeline["copy_ms"], 100 * timeline["covered"], TRAIN_BATCH,
+             pin_ms, copy_ms), flush=True)
 
 
 def resnet50_step_updates(mx, ctx, x, y, seed):

@@ -39,8 +39,9 @@ import torch
 from .base import MXNetError
 from .context import as_context, gpu
 from .ndarray import NDArray, zeros
+from .ops import launches
 from .ops.nn import _batch_norm
-from .optimizer import sgd_step_tensors
+from .optimizer import hyper_tensor, lr_wd_groups, sgd_step_math
 
 __all__ = ["Executor"]
 
@@ -76,37 +77,19 @@ def _bn_relu_peephole(symbol, nodes):
     return bn_defer, act_fuse
 
 
-def _launch_counted():
-    """Every kernel wrapper that counts its launches in ``.launches``."""
-    from .ops import attention, bn_kernel, rnn_kernel
-
-    return (bn_kernel.bn_fwd_cuda, bn_kernel.bn_bwd_cuda,
-            rnn_kernel.lstm_infer_cuda, rnn_kernel.lstm_fwd_cuda,
-            rnn_kernel.lstm_bwd_cuda, attention.flash_attention_cuda)
-
-
-def _lr_wd_groups(lrs, wds):
-    """``(groups, values)``: the indices that share one ``(lr, wd)``, in
-    order of first appearance, and each group's pair."""
-    first = {}
-    for i, pair in enumerate(zip(lrs, wds)):
-        first.setdefault(pair, []).append(i)
-    return tuple(tuple(v) for v in first.values()), list(first)
-
-
 class _StepGraph:
     """One captured fused step: the graph, the tensors it was captured on,
     its static outputs, its lr/wd tensor and the kernel launches it
     replays."""
 
     def __init__(self, graph, bound, outputs, hyper, hyper_values,
-                 launches):
+                 recorded):
         self.graph = graph
         self.bound = bound
         self.outputs = outputs
         self.hyper = hyper
         self.hyper_values = hyper_values
-        self.launches = launches
+        self.launches = recorded
 
     def current(self, tensors):
         return len(tensors) == len(self.bound) and all(
@@ -195,10 +178,10 @@ class Executor:
         outs = [o._t for o in self._outputs]
         self.backward()
         with torch.no_grad():
-            sgd_step_tensors([self.arg_dict[n]._t for n in names],
-                             [self._grad_dict[n]._t for n in names],
-                             [m._t for m in moms], groups, hyper, momentum,
-                             rescale, clip)
+            sgd_step_math([self.arg_dict[n]._t for n in names],
+                          [self._grad_dict[n]._t for n in names],
+                          [m._t for m in moms], groups, hyper, momentum,
+                          rescale, clip)
         return outs
 
     def _bound_tensors(self, names, moms):
@@ -215,13 +198,11 @@ class Executor:
         ``lrs``/``wds`` (floats).  The inputs are the bound arrays.  On a
         card the step is a CUDA-graph replay after its first call (see
         the module docstring)."""
-        groups, pairs = _lr_wd_groups(lrs, wds)
-        values = [[p[0] for p in pairs], [p[1] for p in pairs]]
+        groups, values = lr_wd_groups(lrs, wds)
         dev = self.arg_dict[names[0]]._t.device
         if dev.type != "cuda":
-            hyper = torch.tensor(values, dtype=torch.float32, device=dev)
-            self._sgd_body(names, moms, groups, hyper, momentum, rescale,
-                           clip)
+            self._sgd_body(names, moms, groups, hyper_tensor(values, dev),
+                           momentum, rescale, clip)
             return
         key = ("train_sgd", tuple(names), momentum, rescale, clip, groups)
         bound = self._bound_tensors(names, moms)
@@ -249,8 +230,7 @@ class Executor:
             raise MXNetError("replay of the captured train step failed: %s"
                              % e) from e
         self.graph_replays += 1
-        for fn, n in zip(_launch_counted(), step.launches):
-            fn.launches += n
+        launches.replayed(step.launches)
         # outputs the caller may keep: the graph's own are overwritten by
         # the next replay
         self.outputs = [NDArray(o.clone()) for o in step.outputs]
@@ -261,35 +241,31 @@ class Executor:
         stream), then the capture of the step on that stream."""
         dev = stream.device
         side = torch.cuda.Stream(dev)
-        hyper = torch.tensor(values, dtype=torch.float32).to(dev)
+        hyper = hyper_tensor(values, dev)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             outs = self._sgd_body(names, moms, groups, hyper, momentum,
                                   rescale, clip)
         for o in outs:
             o.record_stream(stream)
-        counted = _launch_counted()
-        before = [fn.launches for fn in counted]
         graph = torch.cuda.CUDAGraph()
         t = time.perf_counter()
+        # thread_local: a DevicePrefetchIter's producer thread may pin and
+        # copy the next batch on its own stream meanwhile, which a
+        # "global" capture would take as an error of its own
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with launches.recording() as recorded, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
                 static = self._sgd_body(names, moms, groups, hyper,
                                         momentum, rescale, clip)
         except Exception as e:  # noqa: BLE001 - no eager fallback
             self._pending = None
             raise MXNetError("capture of the fused train step failed: %s"
                              % e) from e
-        finally:
-            # a capture records launches and runs none: they count when
-            # a replay runs them
-            launches = [fn.launches - b for fn, b in zip(counted, before)]
-            for fn, b in zip(counted, before):
-                fn.launches = b
         self.capture_seconds = time.perf_counter() - t
         stream.wait_stream(side)
         self.outputs = [NDArray(o) for o in outs]
-        return _StepGraph(graph, bound, static, hyper, values, launches)
+        return _StepGraph(graph, bound, static, hyper, values, recorded)
 
     @staticmethod
     def simple_bind(symbol, ctx=None, grad_req="null", type_dict=None,

@@ -30,6 +30,7 @@ import torch
 
 from .. import _kernels
 from ..base import MXNetError
+from . import launches
 from .registry import REQUIRED, pbool, pfloat, pint, register
 
 NEG_INF = -1e30
@@ -126,7 +127,7 @@ def flash_attention_cuda(q, k, v, causal, scale):
     if err != 0:
         raise MXNetError("flash attention kernel launch failed: CUDA error "
                          "%d" % err)
-    flash_attention_cuda.launches += 1
+    launches.count(flash_attention_cuda)
     return out, lse
 
 

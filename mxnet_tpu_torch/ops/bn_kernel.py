@@ -9,7 +9,7 @@
   ``bn_pallas.py::_bn_fwd_kernel`` and ``::_bn_bwd_kernel``; the source
   says what bounds them and how the design meets that.  Taken for CUDA
   tensors: they launch the kernel or raise.  ``.launches`` on each counts
-  its launches (one launch = one call: one CUDA kernel where a channel
+  its launches (:mod:`.launches`; one launch = one call: one CUDA kernel where a channel
   fits a thread-block cluster's shared memory, three on the chunked path
   of larger channels).
 * :func:`bn_plan` — which of the two layouts a shape gets on a card.
@@ -34,6 +34,7 @@ import torch
 
 from .. import _kernels
 from ..base import MXNetError
+from . import launches
 
 __all__ = ["bn_fwd_plain", "bn_bwd_plain", "bn_fwd_cuda", "bn_bwd_cuda",
            "bn_plan", "bn_train", "BatchNormTrain"]
@@ -166,7 +167,7 @@ def bn_fwd_cuda(x, gamma, beta, eps, fix_gamma, relu=False):
     if err != 0:
         raise MXNetError("batch norm forward kernel launch failed: CUDA "
                          "error %d" % err)
-    bn_fwd_cuda.launches += 1
+    launches.count(bn_fwd_cuda)
     return y, mean, var
 
 
@@ -192,7 +193,7 @@ def bn_bwd_cuda(x, g, mean, var, gamma, beta, eps, fix_gamma, relu=False):
     if err != 0:
         raise MXNetError("batch norm backward kernel launch failed: CUDA "
                          "error %d" % err)
-    bn_bwd_cuda.launches += 1
+    launches.count(bn_bwd_cuda)
     return dx, dgamma, dbeta
 
 

@@ -31,6 +31,7 @@ import torch
 
 from .. import _kernels
 from ..base import MXNetError
+from . import launches
 
 __all__ = ["lstm_infer_plain", "lstm_fwd_plain", "lstm_bwd_plain",
            "lstm_infer_cuda", "lstm_fwd_cuda", "lstm_bwd_cuda",
@@ -173,7 +174,7 @@ def lstm_infer_cuda(xp, w4, bh, h0, c0):
     hT, cT = torch.empty_like(h0), torch.empty_like(c0)
     _launch(_fn(lib, "mxtt_lstm_infer", 8), "inference forward",
             (xp, w4, bh, h0, c0, ys, hT, cT), (T, N, H), xp.device)
-    lstm_infer_cuda.launches += 1
+    launches.count(lstm_infer_cuda)
     return ys, hT, cT
 
 
@@ -191,7 +192,7 @@ def lstm_fwd_cuda(xp, w4, bh, h0, c0):
     _launch(_fn(lib, "mxtt_lstm_fwd", 10), "forward",
             (xp, w4, bh, h0, c0, ys, gates, cs, hT, cT), (T, N, H),
             xp.device)
-    lstm_fwd_cuda.launches += 1
+    launches.count(lstm_fwd_cuda)
     return ys, gates, cs, hT, cT
 
 
@@ -217,7 +218,7 @@ def lstm_bwd_cuda(gates, cs, ys, w4, h0, c0, dys, dhT, dcT):
     _launch(_fn(lib, "mxtt_lstm_bwd", 15), "backward",
             (gates, cs, ys, w4, h0, c0, dys, dhT, dcT, dxp, dw4, dbh, dh0,
              dc0, work), (T, N, H), gates.device)
-    lstm_bwd_cuda.launches += 1
+    launches.count(lstm_bwd_cuda)
     return dxp, dw4, dbh, dh0, dc0
 
 

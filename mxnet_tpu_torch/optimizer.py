@@ -9,9 +9,10 @@ PyTorch's multi-tensor ``_foreach`` ops, in place:
 ``g = clip(rescale * grad) + wd * p``, ``m = momentum * m - lr * g``,
 ``p += m`` (without momentum ``p -= lr * g``).  ``torch.optim.SGD`` is not
 used: its momentum buffer holds the un-scaled gradient sum, so the two
-differ once the learning rate changes.  :func:`sgd_step_tensors` is the
-same step with lr and wd read from a device tensor, as a captured CUDA
-graph needs them (a Python float would be baked into the graph).
+differ once the learning rate changes.  lr and wd are read from a tensor
+on the parameters' device (:func:`hyper_tensor`), in both the eager
+update and the captured fused step: a Python float would be baked into a
+captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -22,37 +23,41 @@ from .base import Registry
 from .ndarray import zeros
 
 __all__ = ["Optimizer", "SGD", "create", "register", "Updater",
-           "get_updater", "sgd_step_math", "sgd_step_tensors"]
+           "get_updater", "sgd_step_math", "lr_wd_groups", "hyper_tensor"]
 
 registry = Registry("optimizer")
 register = registry.register
 
 
-def sgd_step_math(params, grads, moms, lrs, wds, momentum, rescale, clip):
+def lr_wd_groups(lrs, wds):
+    """``(groups, values)``: the indices of the tensors that share one
+    ``(lr, wd)``, in order of first appearance, and ``values``, the
+    ``[[lr, ...], [wd, ...]]`` of the groups."""
+    first = {}
+    for i, pair in enumerate(zip(lrs, wds)):
+        first.setdefault(pair, []).append(i)
+    return (tuple(tuple(v) for v in first.values()),
+            [[p[0] for p in first], [p[1] for p in first]])
+
+
+def hyper_tensor(values, device):
+    """``values`` as a float32 tensor on ``device``; on a card one
+    non-blocking copy from pinned memory (the caching host allocator does
+    not hand the pinned block out again before the copy has run)."""
+    host = torch.tensor(values, dtype=torch.float32)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def sgd_step_math(params, grads, moms, groups, hyper, momentum, rescale,
+                  clip):
     """One SGD(-momentum) step over lists of tensors, in place on
-    ``params`` and ``moms``; ``lrs``/``wds`` hold one float per tensor."""
-    g = torch._foreach_mul(grads, rescale)
-    if clip is not None and clip > 0:
-        torch._foreach_clamp_min_(g, -clip)
-        torch._foreach_clamp_max_(g, clip)
-    torch._foreach_add_(g, torch._foreach_mul(params, wds))
-    torch._foreach_mul_(g, lrs)
-    if momentum != 0.0:
-        torch._foreach_mul_(moms, momentum)
-        torch._foreach_sub_(moms, g)
-        torch._foreach_add_(params, moms)
-    else:
-        torch._foreach_sub_(params, g)
-
-
-def sgd_step_tensors(params, grads, moms, groups, hyper, momentum, rescale,
-                     clip):
-    """:func:`sgd_step_math` with the learning rates and weight decays in
-    a float32 tensor ``hyper`` of shape ``(2, len(groups))`` on the
-    parameters' device: ``groups[j]`` lists the indices of the tensors
-    whose lr is ``hyper[0, j]`` and wd ``hyper[1, j]``.  Each product
-    takes the same float32 factor as the Python-float version, so the two
-    agree bit for bit."""
+    ``params`` and ``moms`` (empty without momentum).  ``hyper`` is a
+    float32 tensor of shape ``(2, len(groups))`` on the parameters'
+    device: ``groups[j]`` lists the indices of the tensors whose lr is
+    ``hyper[0, j]`` and wd ``hyper[1, j]``.  Nothing is read back to the
+    host, so the step can be captured."""
     g = torch._foreach_mul(grads, rescale)
     if clip is not None and clip > 0:
         torch._foreach_clamp_min_(g, -clip)
@@ -165,13 +170,15 @@ class SGD(Optimizer):
     def update_multi(self, indices, weights, grads, states):
         """One step for many parameters whose update counts were already
         advanced (the Module's fused path)."""
+        groups, values = lr_wd_groups([self._get_lr(i) for i in indices],
+                                      [self._get_wd(i) for i in indices])
+        params = [w._t for w in weights]
         with torch.no_grad():
             sgd_step_math(
-                [w._t for w in weights], [g._t for g in grads],
+                params, [g._t for g in grads],
                 [s._t for s in states] if self.momentum != 0.0 else [],
-                [self._get_lr(i) for i in indices],
-                [self._get_wd(i) for i in indices], self.momentum,
-                self.rescale_grad, self.clip_gradient)
+                groups, hyper_tensor(values, params[0].device),
+                self.momentum, self.rescale_grad, self.clip_gradient)
 
 
 def create(name, **kwargs):

@@ -16,6 +16,8 @@ and for the LSTM kernels ``1e-5`` (K4/K5) and ``1e-4`` (K6) of each
 output's largest magnitude (the error compounds over up to 60 steps).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -703,6 +705,56 @@ def test_new_params_and_optimizer_after_capture_take_effect(cuda_device,
     assert mod._exec.graph_replays == 3  # one capture for each optimizer
     assert len(mod._exec._graphs) == 1
     _assert_steps_agree(fused, eager)
+
+
+class _SlowIter(mx.io.NDArrayIter):
+    """An ``NDArrayIter`` whose ``next`` first sleeps ``delay`` seconds, so
+    that a prefetch producer pins and copies the next batch at a chosen
+    point of the consumer's step (its warm-up and capture included)."""
+
+    def __init__(self, *args, delay=0.0, **kw):
+        super().__init__(*args, **kw)
+        self.delay = delay
+
+    def next(self):
+        time.sleep(self.delay)
+        return super().next()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bulk", [None, 2])
+def test_captured_fit_with_device_prefetch(cuda_device, monkeypatch, bulk):
+    """``fit(prefetch_to_device=True)`` with the captured step, the
+    producer's next batch arriving at several points of the warm-up and
+    the capture: each fit captures once, replays every later step and
+    ends where the fit without prefetch ends."""
+    from mxnet_tpu_torch.models import resnet
+
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1")
+    if bulk:
+        monkeypatch.setenv("MXNET_BULK_TRAIN_STEPS", str(bulk))
+    rs = np.random.RandomState(5)
+    x = rs.uniform(0, 255, (24, 3, 40, 40)).astype(np.float32)
+    y = rs.randint(0, 4, 24).astype(np.float32)
+
+    def fit(prefetch, delay=0.0):
+        mod = mx.mod.Module(resnet.resnet(**SMALL), context=mx.gpu(0))
+        mx.init.seed(3)
+        mod.fit(_SlowIter(x, y, batch_size=4, delay=delay), num_epoch=2,
+                prefetch_to_device=prefetch,
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
+                                  "wd": 1e-4},
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+        torch.cuda.synchronize()
+        assert mod._exec.graph_replays == 11 and len(mod._exec._graphs) == 1
+        arg, aux = mx.convert.module_params_to_numpy(mod)
+        arg.update({"aux:" + k: v for k, v in aux.items()})
+        return arg
+
+    want = fit(False)
+    for delay in (0.0, 0.001, 0.005, 0.02, 0.05):
+        _assert_steps_agree(fit(True, delay), want)
 
 
 @pytest.mark.cuda

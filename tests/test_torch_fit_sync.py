@@ -302,25 +302,71 @@ def test_fused_step_equals_two_phase_and_jax(init_params, monkeypatch):
 @pytest.mark.parametrize("momentum,clip", [(0.9, None), (0.0, 0.5),
                                             (0.9, 0.5)])
 def test_sgd_step_with_tensor_lr_wd_equals_the_float_step(momentum, clip):
-    """The captured update's math (lr and wd read from a tensor, in
-    groups) against the eager update's, bit for bit."""
+    """The port's SGD step (lr and wd read from a tensor, in groups)
+    against the JAX package's ``sgd_step_math`` (lr and wd as floats,
+    one tensor at a time)."""
+    import jax.numpy as jnp
+
+    from mxnet_tpu.executor import sgd_step_math as jax_step
+
     rs = np.random.RandomState(0)
     shapes = [(3, 4), (5,), (7, 2), (9,)]
-    draw = lambda: [torch.from_numpy(  # noqa: E731
-        rs.normal(0, 1, s).astype(np.float32)) for s in shapes]
+    draw = lambda: [rs.normal(0, 1, s).astype(np.float32)  # noqa: E731
+                    for s in shapes]
     p, g, m = draw(), draw(), draw()
     lrs, wds = [0.1, 0.1, 0.2, 0.1], [1e-4, 0.0, 1e-4, 1e-4]
-    p2, m2 = [t.clone() for t in p], [t.clone() for t in m]
-    moms = m if momentum else []
-    tmx.optimizer.sgd_step_math(p, g, moms, lrs, wds, momentum, 1 / 128,
-                                clip)
-    groups, pairs = tmx.executor._lr_wd_groups(lrs, wds)
+    tp, tm = [torch.from_numpy(a.copy()) for a in p], \
+        [torch.from_numpy(a.copy()) for a in m]
+    groups, values = tmx.optimizer.lr_wd_groups(lrs, wds)
     assert groups == ((0, 3), (1,), (2,))
-    hyper = torch.tensor([[a for a, _ in pairs], [b for _, b in pairs]])
-    tmx.optimizer.sgd_step_tensors(p2, g, m2 if momentum else [], groups,
-                                   hyper, momentum, 1 / 128, clip)
-    for a, b in zip(p + m, p2 + m2):
-        assert torch.equal(a, b)
+    assert values == [[0.1, 0.1, 0.2], [1e-4, 0.0, 1e-4]]
+    tmx.optimizer.sgd_step_math(
+        tp, [torch.from_numpy(a) for a in g], tm if momentum else [],
+        groups, tmx.optimizer.hyper_tensor(values, "cpu"), momentum,
+        1 / 128, clip)
+    for i in range(len(shapes)):
+        jp, jm = jax_step(jnp.asarray(p[i]), jnp.asarray(g[i]),
+                          jnp.asarray(m[i]), lrs[i], wds[i], momentum,
+                          1 / 128, clip or 0.0)
+        np.testing.assert_allclose(tp[i].numpy(), np.asarray(jp),
+                                   rtol=1e-6, atol=1e-7)
+        if momentum:
+            np.testing.assert_allclose(tm[i].numpy(), np.asarray(jm),
+                                       rtol=1e-6, atol=1e-7)
+
+
+def test_launches_recorded_in_a_capture_count_at_each_replay(monkeypatch):
+    """A launch on a capturing stream, from the capturing thread or
+    another (autograd's worker), is recorded and counts at each replay;
+    one on a stream that is not capturing counts at once."""
+    from mxnet_tpu_torch.ops import launches
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    capturing = threading.local()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: getattr(capturing, "on", False))
+
+    def launch(capture):
+        capturing.on = capture
+        launches.count(wrapper)
+
+    launch(False)
+    with launches.recording() as rec:
+        launch(True)
+        worker = threading.Thread(target=launch, args=(True,))
+        worker.start()
+        worker.join()
+        side = threading.Thread(target=launch, args=(False,))
+        side.start()
+        side.join()
+    assert wrapper.launches == 2 and rec == {wrapper: 2}
+    launch(True)  # no recording open: counted
+    launches.replayed(rec)
+    launches.replayed(rec)
+    assert wrapper.launches == 7
 
 
 def test_fused_step_takes_each_parameters_lr_and_wd(init_params,
