@@ -89,6 +89,23 @@
    syncs per epoch, peak memory, and a second epoch of the same ``fit``
    (every step a replay) profiled from an idle card: the device's idle
    share and the share of the batch copies' time under kernels.
+7c. Checkpoint phase: the sync-free ``fit`` of 7b (same switches, batches
+   and seed) over two epochs with ``checkpoint_prefix`` in a temporary
+   directory and a snapshot every 2 batches by the async writer.  Fits A
+   and A' run through; fit B takes a SIGTERM (``signal.raise_signal``
+   from its batch-end callback) at batch 3, the end of its second chunk,
+   and must raise ``TrainingPreempted`` leaving a generation at batch 3
+   whose parameters and momenta, read back from the files, equal B's
+   arrays bit for bit; fit C, a new Module, resumes it with
+   ``resume="auto"`` and must replay its captured step in every step
+   after its first, launch K1 and K2 51 times a step and call no plain
+   BatchNorm on the card; fit D is ``Module.load`` of A's epoch-1
+   checkpoint with its optimizer states, trained one more epoch.  Each
+   tensor of C and D must lie within 3x (its distance between A and A'
+   plus 7b's floor) of A, and equal A bit for bit where A and A' do.
+   Prints the host ms ``_FitRun.after_batch`` takes per snapshot, the
+   writer's seconds and MB per generation, the step with and without
+   snapshots, the resumed fit's first step and peak memory.
 8. Step parity: the same ResNet-50 weights and batch (b4), one fit step on
    ``gpu(0)`` and on ``cpu()`` (the plain versions).  The first step of a
    random ResNet-50 is ill-conditioned (a 1e-7 input perturbation moves
@@ -108,7 +125,10 @@
    plain version called on the card.  Prints the ms per batch per bucket
    (CUDA events), the host copy of the outputs ``Perplexity`` takes,
    peak memory, the (finite) validation perplexity and a profile of one
-   T=60 batch.
+   T=60 batch.  The fit's ``epoch_end_callback`` is ``do_rnn_checkpoint``;
+   a second ``BucketingModule`` built from ``load_rnn_checkpoint`` scores
+   the eval data to the trained module's perplexity (``rtol=1e-6``, both
+   on iterators shuffled alike) with 2 K4 launches per eval batch.
 10. LSTM step parity: one T=60 training step on the card and on the CPU
    (plain versions) from the same weights; each parameter's update
    within 1e-4 of its norm (3x the floor if an embedding perturbed by
@@ -1061,7 +1081,7 @@ def sync_free_phase(mx, bnk, seed, steps, classic):
     fits take the lr of each chunk's last update, the ``run_bulk`` rule;
     the training phase's own fit, with the per-step lr, is printed
     beside them); the device metric equals the host metric on the same
-    outputs."""
+    outputs.  Returns the step time and the per-tensor floor."""
     x, y = resnet50_data(seed, steps)
     rng = np.random.default_rng(seed + 7)
     xp = (x * (1 + 1e-7 * rng.standard_normal(x.shape, dtype=np.float32))
@@ -1193,7 +1213,7 @@ def sync_free_phase(mx, bnk, seed, steps, classic):
     sync_free_profiles(mx, bnk, mod, x, y)
     del mod, it, x
     torch.cuda.empty_cache()
-    return launches
+    return dict(step_ms=steady, floor=dict(zip(names, floor)))
 
 
 def sync_free_profiles(mx, bnk, mod, x, y):
@@ -1303,6 +1323,281 @@ def sync_free_profiles(mx, bnk, mod, x, y):
              100 * timeline["idle"], timeline["copies"],
              timeline["copy_ms"], 100 * timeline["covered"], TRAIN_BATCH,
              pin_ms, copy_ms), flush=True)
+
+
+# -- checkpoint and resume (phase 7c) -----------------------------------------
+#: snapshot cadence of the checkpointed fits, and the batch of the SIGTERM
+#: (the end of the second chunk of two)
+CKPT_EVERY, CKPT_KILL_AT, CKPT_EPOCHS = 2, 3, 2
+
+
+@contextlib.contextmanager
+def _patched(obj, name, wrap):
+    """``obj.name`` replaced by ``wrap(original)`` within the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def _module_state(mx, mod):
+    """Parameters, auxiliary states and momenta of a module, as numpy."""
+    arg, aux = mx.convert.module_params_to_numpy(mod)
+    out = dict(arg, **{"aux:" + k: v for k, v in aux.items()})
+    out.update({"mom:%d" % i: s.asnumpy()
+                for i, s in mod._updater.states.items() if s is not None})
+    return out
+
+
+def _chunk_ms(start, events):
+    """ms between chunk ends (CUDA events at batch ends), the first chunk
+    from ``start``."""
+    ends = [events[i] for i in range(BULK_K - 1, len(events), BULK_K)]
+    return [start.elapsed_time(ends[0])] + [
+        a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+
+
+def checkpoint_phase(mx, bnk, seed, steps, sync_free):
+    """Checkpoints and resume of the sync-free ResNet-50 b128 ``fit``
+    (phase 7b's settings: captured step, chunks of two, device prefetch,
+    device metric) over two epochs of the same ``steps`` batches, with a
+    snapshot every ``CKPT_EVERY`` batches written by the async writer:
+    fits A and A' run through; fit B is stopped by a SIGTERM at batch
+    ``CKPT_KILL_AT`` and leaves a generation equal to its arrays; fit C,
+    a new Module, resumes it with ``resume="auto"`` (its captured step
+    replayed in every step after its first, 51 K1 and 51 K2 launches a
+    step, no plain BatchNorm on the card); fit D is ``Module.load`` of
+    A's epoch-1 checkpoint with its optimizer states, trained one more
+    epoch.  C and D must end within 3x (the distance between A and A'
+    plus phase 7b's floor) of A, per tensor, and equal A bit for bit
+    where A and A' agree bit for bit."""
+    import shutil
+    import signal
+
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.module import base_module as bm
+
+    x, y = resnet50_data(seed, steps)
+    loop_ms, writes = [], []
+    parts = {"copies": [], "metric": [], "iterator": [], "epoch_save": []}
+
+    def timed(sink):
+        def wrap(real):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return real(*a, **kw)
+                finally:
+                    sink.append((time.perf_counter() - t) * 1e3)
+            return call
+        return wrap
+
+    def timed_after_batch(real):
+        def after_batch(run, module, epoch, nbatch, *a, **kw):
+            t = time.perf_counter()
+            try:
+                return real(run, module, epoch, nbatch, *a, **kw)
+            finally:
+                if (nbatch + 1) % run.every_n == 0:
+                    loop_ms.append((time.perf_counter() - t) * 1e3)
+        return after_batch
+
+    def timed_write(real):
+        def write_snapshot(prefix, snap, *a, **kw):
+            t = time.perf_counter()
+            path = real(prefix, snap, *a, **kw)
+            secs = time.perf_counter() - t
+            size = sum(os.path.getsize(path[:-len("params")] + kind)
+                       for kind in ("params", "states"))
+            writes.append((secs, size / 1e6))
+            return path
+        return write_snapshot
+
+    def fit(prefix, mod=None, kill_at=None, resume=None, begin_epoch=0,
+            every_n=CKPT_EVERY, opt_extra=None):
+        mod = mod or _resnet50_module(mx)
+        metric = mx.metric.CompositeEvalMetric(
+            [mx.metric.Accuracy(), mx.metric.TopKAccuracy(top_k=5)])
+        events = []
+
+        def mark(param):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            if param.nbatch == kill_at and param.epoch == 0:
+                if not isinstance(signal.getsignal(signal.SIGTERM),
+                                  bm._PreemptGuard):
+                    raise RuntimeError("fit holds no SIGTERM handler")
+                signal.raise_signal(signal.SIGTERM)
+
+        opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+               "lr_scheduler": mx.lr_scheduler.MultiFactorScheduler(
+                   step=[steps // 2], factor=0.1)}
+        opt.update(opt_extra or {})
+        start = torch.cuda.Event(enable_timing=True)
+        preempted = None
+        with environment(SYNC_FREE_ENV), bn_plain_refused(bnk):
+            mx.init.seed(seed)
+            # -- the main path: counts from 0, the fit --
+            bnk.bn_fwd_cuda.launches = 0
+            bnk.bn_bwd_cuda.launches = 0
+            start.record()
+            try:
+                mod.fit(mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH),
+                        num_epoch=CKPT_EPOCHS, begin_epoch=begin_epoch,
+                        eval_metric=metric, batch_end_callback=mark,
+                        optimizer="sgd", optimizer_params=opt,
+                        prefetch_to_device=True,
+                        initializer=mx.init.Xavier(
+                            rnd_type="gaussian", factor_type="in",
+                            magnitude=2),
+                        checkpoint_prefix=prefix, resume=resume,
+                        checkpoint_every_n_batches=every_n)
+            except ck.TrainingPreempted as e:
+                preempted = e
+            torch.cuda.synchronize()
+            launches = (bnk.bn_fwd_cuda.launches, bnk.bn_bwd_cuda.launches)
+            # -- end of the main path --
+        return dict(mod=mod, state=_module_state(mx, mod), events=events,
+                    start=start, launches=launches, preempted=preempted,
+                    replays=mod._exec.graph_replays,
+                    names=dict(metric.get_name_value()))
+
+    root = tempfile.mkdtemp(prefix="mxtt-ckpt-")
+    try:
+        prefix = {k: os.path.join(root, k, "resnet50")
+                  for k in ("A", "A2", "B")}
+        for p in prefix.values():
+            os.makedirs(os.path.dirname(p))
+        torch.cuda.reset_peak_memory_stats()
+        with _patched(bm._FitRun, "after_batch", timed_after_batch), \
+                _patched(ck, "write_snapshot", timed_write):
+            with _patched(mx.mod.Module, "_capture_state_arrays",
+                          timed(parts["copies"])), \
+                    _patched(mx.metric.DeviceMetric, "get_state",
+                             timed(parts["metric"])), \
+                    _patched(mx.io.PrefetchingIter, "state_dict",
+                             timed(parts["iterator"])), \
+                    _patched(bm.BaseModule, "_save_fit_checkpoint",
+                             timed(parts["epoch_save"])):
+                a = fit(prefix["A"])
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            a_loop, a_writes = list(loop_ms), list(writes)
+            del a["mod"]
+            torch.cuda.empty_cache()
+            a2 = fit(prefix["A2"])
+            del a2["mod"]
+            shutil.rmtree(os.path.dirname(prefix["A2"]))
+            b = fit(prefix["B"], kill_at=CKPT_KILL_AT)
+        if b["preempted"] is None or b["preempted"].nbatch != CKPT_KILL_AT:
+            raise RuntimeError("fit B was not preempted at batch %d: %r"
+                               % (CKPT_KILL_AT, b["preempted"]))
+        # B's generation, read back from its files, against B's arrays
+        gen = ck.load_latest_state(prefix["B"])
+        if gen is None or (gen.epoch, gen.nbatch) != (0, CKPT_KILL_AT):
+            raise RuntimeError("no generation at batch %d: %s"
+                               % (CKPT_KILL_AT, gen and (gen.epoch,
+                                                         gen.nbatch)))
+        on_disk = {k: v.asnumpy() for k, v in gen.arg_params.items()}
+        on_disk.update({"aux:" + k: v.asnumpy()
+                        for k, v in gen.aux_params.items()})
+        on_disk.update({"mom:%d" % i: s.asnumpy() for i, s in
+                        mx.optimizer.load_states(gen.states_bytes).items()
+                        if s is not None})
+        mismatch = [k for k in b["state"] if k not in on_disk
+                    or not np.array_equal(on_disk[k], b["state"][k])]
+        print("checkpoint: fit B preempted by SIGTERM at batch %d; the "
+              "generation on disk (%s) holds %d arrays, %d of them "
+              "momenta; bit-identical to B's arrays: %s; update count %s"
+              % (CKPT_KILL_AT, os.path.basename(gen.path), len(on_disk),
+                 sum(k.startswith("mom:") for k in on_disk), not mismatch,
+                 gen.opt_counts["num_update"]), flush=True)
+        if mismatch or len(on_disk) != len(b["state"]):
+            raise RuntimeError("generation differs from fit B's arrays: %s"
+                               % mismatch[:5])
+        del b
+        torch.cuda.empty_cache()
+        c = fit(prefix["B"], resume="auto")
+        steps_c = CKPT_EPOCHS * steps - (CKPT_KILL_AT + 1)
+        if c["replays"] != steps_c - 1:
+            raise RuntimeError("resumed fit replayed %d times in %d steps"
+                               % (c["replays"], steps_c))
+        if c["launches"] != (51 * steps_c, 51 * steps_c):
+            raise RuntimeError("resumed fit: K1/K2 launched %s times in %d "
+                               "steps, expected 51 each a step"
+                               % (c["launches"], steps_c))
+        c_chunks = _chunk_ms(c["start"], c["events"])
+        del c["mod"]
+        torch.cuda.empty_cache()
+        d = fit(None, mod=mx.mod.Module.load(prefix["A"], 1,
+                                             load_optimizer_states=True),
+                begin_epoch=1, every_n=None,
+                opt_extra={"begin_num_update": steps})
+        del d["mod"]
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    floor = sync_free["floor"]
+    names = sorted(floor)
+    spread = np.array([np.linalg.norm(a["state"][k] - a2["state"][k])
+                       for k in names])
+    same = {k: np.array_equal(a["state"][k], a2["state"][k]) for k in names}
+    bound = 3 * (spread + np.array([floor[k] for k in names]))
+    for label, run in (("C (resume='auto' from the batch-%d snapshot)"
+                        % CKPT_KILL_AT, c),
+                       ("D (Module.load of the epoch-1 checkpoint)", d)):
+        dist = np.array([np.linalg.norm(run["state"][k] - a["state"][k])
+                         for k in names])
+        exact = [np.array_equal(run["state"][k], a["state"][k])
+                 for k in names]
+        ratio = dist / np.maximum(bound, 1e-30)
+        worst = int(np.argmax(ratio))
+        print("checkpoint: fit %s against fit A: bit-identical in %d of %d "
+              "tensors (A and A' in %d); distance over 3x (A-A' distance + "
+              "phase 7b floor): median %.3g, worst %.3g at %s (limit 1); "
+              "metrics %s (A %s)" % (label, sum(exact), len(names),
+                                     sum(same.values()),
+                                     float(np.median(ratio)), ratio[worst],
+                                     names[worst], run["names"], a["names"]),
+              flush=True)
+        broken = [k for k, e in zip(names, exact) if same[k] and not e]
+        if broken or not ratio[worst] <= 1:
+            raise RuntimeError("fit %s differs from A: %s not bit-identical "
+                               "where A and A' are; worst %s at %.3g of the "
+                               "bound" % (label, broken[:5], names[worst],
+                                          ratio[worst]))
+    a_chunks = _chunk_ms(a["start"], a["events"])
+    steady = float(np.median(a_chunks[1:])) / BULK_K
+    c_steady = float(np.median(c_chunks[1:])) / BULK_K
+    gens = len(a_writes)
+    print("checkpoint: A, %d snapshots requested in %d steps (every %d "
+          "batches, async writer), %d written: host ms on the loop per "
+          "snapshot (_FitRun.after_batch) %s, of which the device copies "
+          "%s, the device-metric read (a sync) %s, the iterator state %s; "
+          "writer s per generation %s, MB per generation %s; epoch "
+          "checkpoint (params and optimizer states, fsync'd) ms %s; step "
+          "%.2f ms with snapshots (chunk ms %s) against %.2f ms without "
+          "(phase 7b); peak memory allocated %.2f GB"
+          % (len(a_loop), CKPT_EPOCHS * steps, CKPT_EVERY, gens,
+             ["%.2f" % t for t in a_loop],
+             ["%.2f" % t for t in parts["copies"]],
+             ["%.2f" % t for t in parts["metric"]],
+             ["%.2f" % t for t in parts["iterator"]],
+             ["%.3f" % w[0] for w in a_writes],
+             ["%.1f" % w[1] for w in a_writes],
+             ["%.1f" % t for t in parts["epoch_save"]], steady,
+             ["%.2f" % t for t in a_chunks], sync_free["step_ms"], peak_gb),
+          flush=True)
+    print("checkpoint: resumed fit C, %d steps, %d replays: first chunk "
+          "%.2f ms (warm-up, capture and one replay), so its first step "
+          "took %.2f ms; chunk ms %s"
+          % (steps_c, c["replays"], c_chunks[0], c_chunks[0] - c_steady,
+             ["%.2f" % t for t in c_chunks]), flush=True)
+    if gens == 0:
+        raise RuntimeError("the async writer wrote no generation")
 
 
 def resnet50_step_updates(mx, ctx, x, y, seed):
@@ -1595,10 +1890,10 @@ def lstm_plain_refused(rk):
             setattr(rk, k, v)
 
 
-def _lstm_module(mx, lstm_lm, ctx=None, key=max(LSTM_BUCKETS)):
+def _lstm_module(mx, lstm_lm, ctx=None, key=max(LSTM_BUCKETS), cell=None):
     sym_gen = lstm_lm.make_sym_gen(
-        lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS), LSTM_VOCAB, LSTM_EMBED,
-        LSTM_HIDDEN)
+        cell or lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS), LSTM_VOCAB,
+        LSTM_EMBED, LSTM_HIDDEN)
     return mx.mod.BucketingModule(sym_gen, default_bucket_key=key) \
         if ctx is None else mx.mod.BucketingModule(
             sym_gen, default_bucket_key=key, context=ctx)
@@ -1624,8 +1919,11 @@ def lstm_training_phase(mx, rk, seed):
     if min(per_bucket.values()) < 2:
         raise RuntimeError("a bucket has fewer than 2 training batches: %s"
                            % per_bucket)
-    mod = _lstm_module(mx, lstm_lm)
+    cell = lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS)
+    mod = _lstm_module(mx, lstm_lm, cell=cell)
     marks, evals = [], []
+    ckpt_dir = tempfile.mkdtemp(prefix="mxtt-lm-")
+    prefix = os.path.join(ckpt_dir, "lstm_lm")
 
     def mark(param):
         ev = torch.cuda.Event(enable_timing=True)
@@ -1646,6 +1944,7 @@ def lstm_training_phase(mx, rk, seed):
         mod.fit(train, eval_data=val, eval_metric=mx.metric.Perplexity(0),
                 validation_metric=val_metric, num_epoch=1,
                 batch_end_callback=mark,
+                epoch_end_callback=mx.rnn.do_rnn_checkpoint(cell, prefix),
                 eval_batch_end_callback=lambda p: evals.append(p.nbatch),
                 optimizer="sgd", optimizer_params={
                     "learning_rate": 0.02, "momentum": 0.0, "wd": 1e-5},
@@ -1690,11 +1989,68 @@ def lstm_training_phase(mx, rk, seed):
     if bad or not np.isfinite(ppl):
         raise RuntimeError("LSTM training gave non-finite params %s or "
                            "perplexity %s" % (bad, ppl))
+    try:
+        lstm_reloaded(mx, rk, lstm_lm, prefix, mod, seed)
+    finally:
+        import shutil
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     lstm_host_copy(mx, mod, val)
     lstm_profile(mx, mod, train)
     del mod
     torch.cuda.empty_cache()
     return launches
+
+
+def lstm_reloaded(mx, rk, lstm_lm, prefix, trained, seed):
+    """A second ``BucketingModule`` from the epoch checkpoint that
+    ``do_rnn_checkpoint`` wrote (``load_rnn_checkpoint`` packs the
+    per-gate arrays back into the fused blob) scores the eval data: its
+    perplexity equals the trained module's score of the same batches
+    (each pass on a new iterator, its shuffles seeded alike:
+    ``Perplexity`` is a mean over batches) within ``rtol=1e-6``, with 2
+    K4 launches per eval batch."""
+    def val_iter():
+        random.seed(seed)
+        np.random.seed(seed)
+        return mx.rnn.BucketSentenceIter(
+            lstm_lm.synth_corpus(LSTM_VAL_SENTENCES, LSTM_VOCAB,
+                                 seed=seed + 17, buckets=LSTM_BUCKETS),
+            LSTM_BATCH, buckets=list(LSTM_BUCKETS), invalid_label=0,
+            layout="TN")
+
+    (_, ppl), = trained.score(val_iter(), mx.metric.Perplexity(0))
+    val = val_iter()
+    cell = lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS)
+    _sym, arg, aux = mx.rnn.load_rnn_checkpoint(cell, prefix, 1)
+    saved = mx.nd.load("%s-0001.params" % prefix)
+    mod = _lstm_module(mx, lstm_lm, cell=cell)
+    mod.bind(val.provide_data, val.provide_label, for_training=False)
+    mod.set_params(arg, aux)
+    metric = mx.metric.Perplexity(0)
+    with lstm_plain_refused(rk):
+        # -- the main path: counts from 0, the score pass --
+        rk.lstm_infer_cuda.launches = 0
+        seen = []
+        (_, got), = mod.score(val, metric,
+                              batch_end_callback=lambda p: seen.append(1))
+        torch.cuda.synchronize()
+        launches = rk.lstm_infer_cuda.launches
+        # -- end of the main path --
+    n_eval = len(seen)
+    print("lstm checkpoint: do_rnn_checkpoint wrote %d arrays (the fused "
+          "blob unpacked per gate: %s); the reloaded module's perplexity "
+          "%.6f against the trained module's %.6f (rtol 1e-6); K4 launches "
+          "%d over %d eval batches" % (
+              len(saved), "arg:lstm_l1_h2h_weight" in saved, got, ppl,
+              launches, n_eval), flush=True)
+    if not np.isclose(got, ppl, rtol=1e-6, atol=0):
+        raise RuntimeError("reloaded LM scores %r, trained %r" % (got, ppl))
+    if launches != LSTM_LAYERS * n_eval:
+        raise RuntimeError("reloaded LM: %d K4 launches over %d eval "
+                           "batches, expected %d a batch"
+                           % (launches, n_eval, LSTM_LAYERS))
+    del mod
+    torch.cuda.empty_cache()
 
 
 def lstm_host_copy(mx, mod, it):
@@ -1904,7 +2260,8 @@ def main():
     launches = serving_phase(mx, att, dev, args.seed)
     (k1_launches, k2_launches), classic = training_phase(
         mx, bnk, args.seed, TRAIN_STEPS, bn_totals)
-    sync_free_phase(mx, bnk, args.seed, TRAIN_STEPS, classic)
+    sync_free = sync_free_phase(mx, bnk, args.seed, TRAIN_STEPS, classic)
+    checkpoint_phase(mx, bnk, args.seed, TRAIN_STEPS, sync_free)
     parity_phase(mx, bnk, args.seed)
     lstm_launches = lstm_training_phase(mx, rk, args.seed)
     lstm_parity_phase(mx, args.seed)

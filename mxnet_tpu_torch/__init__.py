@@ -10,7 +10,10 @@ training (``mx.mod.Module.fit`` with ``mx.io.NDArrayIter``, ``mx.init``,
 ``csrc/batch_norm.cu``) and the fused-LSTM language model
 (``mx.rnn.FusedRNNCell``, ``mx.rnn.BucketSentenceIter``,
 ``mx.mod.BucketingModule`` and ``models.lstm_lm``, with the LSTM sequence
-forward and backward as hand-written CUDA kernels, ``csrc/lstm.cu``).
+forward and backward as hand-written CUDA kernels, ``csrc/lstm.cu``), and
+checkpoints with resume (``model.save_checkpoint``/``load_checkpoint``,
+``Module.load``, ``fit(checkpoint_prefix=, resume="auto",
+checkpoint_every_n_batches=)``, ``mx.checkpoint``, ``mx.random``).
 The package imports ``torch`` and never ``jax`` nor ``mxnet_tpu``.  Its
 entry points run on ``cuda:0`` unless the caller passes ``ctx=mx.cpu()``
 (``context=`` for the modules); without a card they raise.
@@ -43,7 +46,9 @@ from . import optimizer
 from . import metric
 from . import callback
 from . import io
+from . import random
 from . import model
+from . import checkpoint
 from . import module
 from . import module as mod
 from . import convert
@@ -54,5 +59,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "telemetry", "ops", "nd", "ndarray", "sym", "symbol",
            "Symbol", "Variable", "AttrScope", "Executor",
            "Predictor", "predict", "serving", "initializer", "init",
-           "lr_scheduler", "optimizer", "metric", "callback", "io", "model",
-           "module", "mod", "convert", "models", "rnn"]
+           "lr_scheduler", "optimizer", "metric", "callback", "io", "random",
+           "model", "checkpoint", "module", "mod", "convert", "models",
+           "rnn"]

@@ -1,5 +1,6 @@
-"""Training callbacks (counterpart of ``mxnet_tpu/callback.py``):
-:func:`log_train_metric` and :class:`Speedometer`.
+"""Training callbacks (counterpart of ``mxnet_tpu/callback.py``): the
+epoch-end :func:`do_checkpoint` and :func:`module_checkpoint`, the
+batch-end :func:`log_train_metric` and :class:`Speedometer`.
 
 Batch-end callbacks receive any object with ``epoch``, ``nbatch`` and
 ``eval_metric`` attributes (``model.BatchEndParam``).
@@ -12,7 +13,34 @@ import time
 
 from . import telemetry as _telemetry
 
-__all__ = ["log_train_metric", "Speedometer"]
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback: ``mod.save_checkpoint`` every ``period``
+    epochs."""
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback: ``model.save_checkpoint`` of the symbol and
+    parameters every ``period`` epochs."""
+    from .model import save_checkpoint
+
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

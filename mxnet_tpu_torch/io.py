@@ -6,7 +6,9 @@ Batches are NDArrays on the host; ``Module`` copies each onto its device,
 unless a :class:`DevicePrefetchIter` (``fit(prefetch_to_device=True)``)
 has already placed it there on a side stream.  ``shuffle`` permutes with
 numpy's global generator, as the JAX package does, so the same numpy seed
-gives the same batches in both.
+gives the same batches in both.  ``state_dict``/``load_state_dict``
+(the JAX package's iterator-state protocol) let ``fit`` resume in the
+middle of an epoch.
 """
 
 from __future__ import annotations
@@ -94,6 +96,24 @@ class DataIter:
 
     def getpad(self):
         raise NotImplementedError()
+
+    # -- the iterator-state protocol (exact mid-epoch resume) --------------
+    def state_dict(self):
+        """JSON-able position of the iterator: :meth:`load_state_dict` of
+        it on a freshly made equal iterator makes ``next()`` yield the
+        batch that would have come next.  An iterator without the
+        protocol raises, and ``fit`` then resumes at the epoch
+        boundary."""
+        raise NotImplementedError(
+            "%s does not implement the iterator-state protocol "
+            "(state_dict/load_state_dict); mid-epoch checkpoint resume "
+            "degrades to the epoch boundary" % type(self).__name__)
+
+    def load_state_dict(self, state):
+        """Restore a :meth:`state_dict`."""
+        raise NotImplementedError(
+            "%s does not implement the iterator-state protocol"
+            % type(self).__name__)
 
 
 def _init_data(data, allow_empty, default_name):
@@ -201,13 +221,37 @@ class NDArrayIter(DataIter):
             return self.cursor + self.batch_size - self.num_data
         return 0
 
+    def state_dict(self):
+        # shuffle and discard act on the arrays at construction, so an
+        # equally made iterator at the same cursor yields the same batch
+        return {"type": "NDArrayIter", "cursor": self.cursor,
+                "num_data": self.num_data, "batch_size": self.batch_size}
+
+    def load_state_dict(self, state):
+        if state.get("type", "NDArrayIter") != "NDArrayIter":
+            raise MXNetError("iterator state of type %r cannot restore "
+                             "onto NDArrayIter" % (state.get("type"),))
+        if state.get("num_data", self.num_data) != self.num_data or \
+                state.get("batch_size", self.batch_size) != self.batch_size:
+            raise MXNetError(
+                "NDArrayIter state (num_data=%s, batch_size=%s) does not "
+                "match this iterator (num_data=%d, batch_size=%d)"
+                % (state.get("num_data"), state.get("batch_size"),
+                   self.num_data, self.batch_size))
+        self.cursor = int(state["cursor"])
+
 
 class PrefetchingIter(DataIter):
     """Produces the next batch of each sub-iterator on a daemon thread of
     its own while the caller works on the current one.  ``close()`` (or
     the iterator as a context manager) stops and joins the threads.  An
     error in a producer is raised by ``next()``; a producer thread that
-    has died raises there too, instead of leaving ``next()`` waiting."""
+    has died raises there too, instead of leaving ``next()`` waiting.
+
+    Before each batch a producer records its sub-iterator's
+    ``state_dict()``, so :meth:`state_dict` gives the position of the
+    batch buffered but not yet taken: restored, that batch is made
+    again."""
 
     #: seconds between checks that a producer is alive while waiting
     _POLL = 0.05
@@ -230,6 +274,9 @@ class PrefetchingIter(DataIter):
         self.current_batch = None
         self.next_batch = [None] * self.n_iter
         self._errors = [None] * self.n_iter
+        # each sub-iterator's state before the batch its producer made;
+        # None once a sub-iterator has shown it has no state protocol
+        self._pending_state = [None] * self.n_iter
         self.prefetch_threads = [
             threading.Thread(target=self._producer, args=(i,), daemon=True)
             for i in range(self.n_iter)]
@@ -245,6 +292,11 @@ class PrefetchingIter(DataIter):
             if not self.started:
                 break
             try:
+                if self._pending_state is not None:
+                    try:
+                        self._pending_state[i] = self.iters[i].state_dict()
+                    except NotImplementedError:
+                        self._pending_state = None
                 self.next_batch[i] = self._produce(i)
             except StopIteration:
                 self.next_batch[i] = None
@@ -321,6 +373,33 @@ class PrefetchingIter(DataIter):
         self._errors = [None] * self.n_iter
         self._rearm()
 
+    def state_dict(self):
+        """The position of the consumer: waits for the producers, then
+        gives each sub-iterator's state before its buffered batch."""
+        self._wait_ready()
+        pending = self._pending_state
+        if pending is None or any(s is None for s in pending):
+            raise NotImplementedError(
+                "%s cannot snapshot: a wrapped iterator lacks the state "
+                "protocol" % type(self).__name__)
+        return {"type": type(self).__name__,
+                "inner": [dict(s) for s in pending]}
+
+    def load_state_dict(self, state):
+        """Wait for the producers, restore each sub-iterator, drop the
+        buffered batches and re-arm: the next batch comes from the
+        restored positions."""
+        inner = state["inner"]
+        if len(inner) != self.n_iter:
+            raise MXNetError(
+                "prefetch state has %d sub-iterators, wrapper has %d"
+                % (len(inner), self.n_iter))
+        self._wait_ready()
+        for it, st in zip(self.iters, inner):
+            it.load_state_dict(st)
+        self._errors = [None] * self.n_iter
+        self._rearm()
+
     def iter_next(self):
         self._wait_ready()
         err = next((e for e in self._errors if e is not None), None)
@@ -376,7 +455,9 @@ class DevicePrefetchIter(PrefetchingIter):
     ``_device_put_batch``, which takes the bound array's dtype); by
     default it is ``tensor.to(device, non_blocking=True)``.
     ``fit(prefetch_to_device=True)`` (or ``MXNET_DEVICE_PREFETCH=1``)
-    wraps ``train_data`` in one and closes it when fit ends."""
+    wraps ``train_data`` in one and closes it when fit ends.  Its
+    ``load_state_dict`` drops the batches already placed and rewinds the
+    sub-iterators."""
 
     def __init__(self, iters, device=None, placer=None, rename_data=None,
                  rename_label=None):

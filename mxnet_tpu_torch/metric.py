@@ -12,7 +12,8 @@ metric's ``_device_batch_stats`` (torch ops on the outputs' device and
 stream) into a float32 ``(n_leaves, 2)`` accumulator and returns without
 a host sync; reading the metric is the sync point.  Accuracy, top-k and
 cross-entropy have a device path; ``Perplexity`` stays on the host, as in
-the JAX package.
+the JAX package.  ``get_state``/``set_state`` carry a metric's sums
+across a mid-epoch resume.
 """
 
 from __future__ import annotations
@@ -89,6 +90,24 @@ class EvalMetric:
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
 
+    # -- state (exact mid-epoch resume) ------------------------------------
+    def get_state(self):
+        """JSON-able sums for a mid-epoch snapshot: :meth:`set_state` of
+        them after a reset, then the rest of the epoch, gives the value of
+        an uninterrupted epoch.  numpy scalars become Python numbers."""
+        def _py(v):
+            if isinstance(v, list):
+                return [_py(x) for x in v]
+            return v.item() if hasattr(v, "item") else v
+
+        return {"sum_metric": _py(self.sum_metric),
+                "num_inst": _py(self.num_inst)}
+
+    def set_state(self, state):
+        """Inverse of :meth:`get_state`."""
+        self.sum_metric = state["sum_metric"]
+        self.num_inst = state["num_inst"]
+
     def _device_batch_stats(self, labels, preds):
         """``(sum_metric delta, num_inst delta)`` of one batch as torch ops
         on the batch's device, for :class:`DeviceMetric`; the base class
@@ -126,6 +145,18 @@ class CompositeEvalMetric(EvalMetric):
             (results.extend if isinstance(result, list)
              else results.append)(result)
         return (names, results)
+
+    def get_state(self):
+        return {"children": [m.get_state() for m in self.metrics]}
+
+    def set_state(self, state):
+        children = state["children"]
+        if len(children) != len(self.metrics):
+            raise MXNetError(
+                "composite metric state has %d children, metric has %d"
+                % (len(children), len(self.metrics)))
+        for metric, child in zip(self.metrics, children):
+            metric.set_state(child)
 
 
 @registry.register
@@ -429,6 +460,16 @@ class DeviceMetric(EvalMetric):
     def get_name_value(self):
         self._sync()
         return self._base.get_name_value()
+
+    def get_state(self):
+        """The wrapped metric's state after a sync (one read of the
+        accumulator, counted in ``sync_count``)."""
+        self._sync()
+        return self._base.get_state()
+
+    def set_state(self, state):
+        self._acc = None
+        self._base.set_state(state)
 
 
 def create(metric, **kwargs):

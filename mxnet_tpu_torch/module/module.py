@@ -13,6 +13,11 @@ arrays with another module by NDArray identity, and
 ``BucketingModule`` needs.  Multi-device contexts and meshes are not
 ported yet.
 
+Checkpoints: :meth:`save_checkpoint`, :meth:`Module.load` and the
+optimizer-state files (the JAX package's pickle, read from either
+package and moved onto the module's device); ``fit``'s mid-epoch
+snapshots take :meth:`_capture_state_arrays`.
+
 The sync-free step (the JAX package's ``MXNET_FUSE_TRAIN_STEP=1``): when
 :meth:`_full_step_eligible`, ``forward_backward`` only loads the batch
 and ``update`` runs forward, backward and the SGD update as one
@@ -32,11 +37,11 @@ import torch
 
 from .. import metric as _metric
 from .. import optimizer as opt
-from ..base import MXNetError
+from ..base import MXNetError, atomic_write_bytes
 from ..context import Context, gpu
 from ..executor import Executor
 from ..initializer import InitDesc, Uniform
-from ..model import _create_kvstore
+from ..model import _create_kvstore, load_checkpoint, save_checkpoint
 from ..ndarray import NDArray
 from .base_module import BaseModule
 
@@ -50,6 +55,23 @@ def _parse_data_desc(data_shapes):
             out.append((d.name, tuple(d.shape)))
         else:
             out.append((d[0], tuple(d[1])))
+    return out
+
+
+def _flat_copy(arrays):
+    """Copies of ``arrays`` (NDArrays), as views into one flat buffer per
+    dtype: a few launches however many arrays, on the current stream."""
+    out = [None] * len(arrays)
+    by_dtype = {}
+    for k, a in enumerate(arrays):
+        by_dtype.setdefault(a._t.dtype, []).append(k)
+    with torch.no_grad():
+        for ks in by_dtype.values():
+            ts = [arrays[k]._t.detach() for k in ks]
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            for k, t, piece in zip(ks, ts,
+                                   flat.split([t.numel() for t in ts])):
+                out[k] = NDArray(piece.view(t.shape))
     return out
 
 
@@ -83,6 +105,8 @@ class Module(BaseModule):
         self._kvstore = None
         self._updater = None
         self._pending_full = False  # a staged fused step
+        # a states file Module.load was asked for, read by init_optimizer
+        self._preload_opt_states = None
 
     # -- properties -------------------------------------------------------
     @property
@@ -212,6 +236,9 @@ class Module(BaseModule):
         self._kvstore = kvstore
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def borrow_optimizer(self, shared_module):
         """Use ``shared_module``'s optimizer, kvstore and updater (with its
@@ -443,6 +470,99 @@ class Module(BaseModule):
             if len(bound) == len(labels):
                 labels = bound
         eval_metric.update(labels, self.get_outputs())
+
+    # -- checkpoints -------------------------------------------------------
+    def _capture_state_arrays(self):
+        """Copies of every parameter, auxiliary state and optimizer state
+        for a snapshot, made on the training stream after any staged
+        fused step: one flat buffer per dtype (a few launches, no host
+        sync), the returned arrays views into it.  Returns ``(arg, aux,
+        opt_states, opt_counts)``; ``opt_counts`` holds the update counts
+        the lr schedule reads."""
+        assert self.binded and self.params_initialized
+        self._materialize_pending()
+        ex = self._exec
+        aux_names = list(ex.aux_dict)
+        states = self._updater.states if self.optimizer_initialized \
+            and self._updater is not None else None
+        idx = [i for i, st in (states or {}).items()
+               if isinstance(st, NDArray)]
+        copies = _flat_copy([ex.arg_dict[n] for n in self._param_names]
+                            + [ex.aux_dict[n] for n in aux_names]
+                            + [states[i] for i in idx])
+        arg = dict(zip(self._param_names, copies))
+        copies = copies[len(arg):]
+        aux = dict(zip(aux_names, copies))
+        opt_states = None if states is None else \
+            {**states, **dict(zip(idx, copies[len(aux):]))}
+        opt_counts = None
+        if self._optimizer is not None:
+            opt_counts = {
+                "num_update": int(self._optimizer.num_update),
+                "index_update_count": {
+                    str(k): int(v) for k, v in
+                    self._optimizer._index_update_count.items()}}
+        return arg, aux, opt_states, opt_counts
+
+    def _place_opt_states(self):
+        """Unpickled optimizer states onto the module's device: the fused
+        step hands them to one multi-tensor step, and a capture would take
+        a state left on the CPU as a new tensor of another device."""
+        dev = self._context[0].torch_device()
+        self._updater.states = {
+            i: NDArray(s._t.to(dev)) if isinstance(s, NDArray) else s
+            for i, s in self._updater.states.items()}
+
+    def _restore_opt_snapshot(self, states_bytes, opt_counts):
+        """The resume half of :meth:`_capture_state_arrays`: the updater's
+        states from their pickle, on the module's device, and the update
+        counts, so the lr schedule goes on where it stopped."""
+        if states_bytes is not None and self._updater is not None:
+            self._updater.set_states(states_bytes)
+            self._place_opt_states()
+        if opt_counts and self._optimizer is not None:
+            self._optimizer.num_update = int(
+                opt_counts.get("num_update", self._optimizer.num_update))
+            self._optimizer._index_update_count = {
+                int(k): int(v) for k, v in
+                (opt_counts.get("index_update_count") or {}).items()}
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states``."""
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self.symbol, arg_params, aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of the checkpoint's symbol whose ``bind`` also sets
+        the checkpoint's parameters; with ``load_optimizer_states`` its
+        ``init_optimizer`` reads ``prefix-%04d.states``.  ``kwargs`` go
+        to :class:`Module` (``context=`` among them)."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        orig_bind = mod.bind
+
+        def bind_and_set(*a, **kw):
+            orig_bind(*a, **kw)
+            mod.set_params(args, auxs, allow_missing=False)
+
+        mod.bind = bind_and_set
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_optimizer_states(self, fname):
+        assert self.optimizer_initialized
+        atomic_write_bytes(fname, self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        assert self.optimizer_initialized
+        with open(fname, "rb") as fin:
+            self._updater.set_states(fin.read())
+        self._place_opt_states()
 
     def _device_put_batch(self, name, t):
         """``DevicePrefetchIter``'s placer: host tensor ``t`` of input

@@ -4,7 +4,9 @@
 The on-disk bytes are the dmlc magic-header stream (uint64 magic 0x112 +
 reserved, vector<NDArray> [u32 ndim + u32 dims, Context (i32 type, i32
 id), i32 dtype flag, raw bytes], vector<string> names), byte-compatible in
-both directions with ``mxnet_tpu.ndarray.save``/``load``.
+both directions with ``mxnet_tpu.ndarray.save``/``load``.  An NDArray
+pickles as the JAX package's does (``{"data", "ctx_type", "ctx_id"}``),
+which the optimizer-state files use.
 """
 
 from __future__ import annotations
@@ -76,6 +78,22 @@ class NDArray:
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
                                      self.context)
 
+    # -- pickling (optimizer-state files) ---------------------------------
+    def __getstate__(self):
+        """The JAX package's keys: the data as numpy and the context."""
+        ctx = self.context
+        return {"data": self.asnumpy(), "ctx_type": ctx.device_typeid,
+                "ctx_id": ctx.device_id}
+
+    def __setstate__(self, st):
+        """Onto the pickled device, or the CPU where that device is absent
+        (a file written on a card, or by the JAX package on a TPU)."""
+        try:
+            dev = Context(st["ctx_type"], st["ctx_id"]).torch_device()
+        except (KeyError, MXNetError):
+            dev = torch.device("cpu")
+        self._t = torch.from_numpy(np.array(st["data"])).to(dev)
+
 
 def _device(ctx):
     return (ctx if isinstance(ctx, Context) else current_context()) \
@@ -91,7 +109,7 @@ def array(source, ctx=None, dtype=None):
         src = np.asarray(source)
         if dtype is None and src.dtype == np.float64:
             dtype = np.float32  # MXNet's default dtype
-        t = torch.from_numpy(np.ascontiguousarray(src).copy())
+        t = torch.from_numpy(np.array(src, order="C"))  # 0-d stays 0-d
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
     return NDArray(t.to(_device(ctx)))

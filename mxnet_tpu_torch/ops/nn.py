@@ -78,7 +78,8 @@ def _convolution(attrs, inputs, aux, is_train):
     nd = len(kernel)
     if nd not in _CONV:
         raise MXNetError("Convolution: %d-d kernels are not supported" % nd)
-    if attrs["layout"] not in (None, "NCW", "NCHW", "NCDHW"):
+    # "None": an unset layout as a graph JSON of either package writes it
+    if attrs["layout"] not in (None, "None", "NCW", "NCHW", "NCDHW"):
         raise MXNetError("Convolution: layout %r not ported yet"
                          % attrs["layout"])
     stride, dilate, pad = _norm_stp(kernel, attrs["stride"], attrs["dilate"],

@@ -12,18 +12,23 @@ used: its momentum buffer holds the un-scaled gradient sum, so the two
 differ once the learning rate changes.  lr and wd are read from a tensor
 on the parameters' device (:func:`hyper_tensor`), in both the eager
 update and the captured fused step: a Python float would be baked into a
-captured CUDA graph.
+captured CUDA graph.  ``Updater.get_states``/``set_states`` pickle the
+states in the JAX package's format, and read its files.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
+
 import torch
 
-from .base import Registry
-from .ndarray import zeros
+from .base import MXNetError, Registry
+from .ndarray import NDArray, zeros
 
 __all__ = ["Optimizer", "SGD", "create", "register", "Updater",
-           "get_updater", "sgd_step_math", "lr_wd_groups", "hyper_tensor"]
+           "get_updater", "sgd_step_math", "lr_wd_groups", "hyper_tensor",
+           "load_states"]
 
 registry = Registry("optimizer")
 register = registry.register
@@ -187,6 +192,38 @@ def create(name, **kwargs):
     return registry.create(name, **kwargs)
 
 
+class _StatesUnpickler(pickle.Unpickler):
+    """Reads an optimizer-state pickle of this package or of the JAX
+    package (whose arrays name ``mxnet_tpu.ndarray.NDArray``) without
+    importing the JAX package: both NDArray classes map to this package's,
+    numpy's array reconstructors to themselves, and any other class is
+    refused, so a state file runs no other code."""
+
+    _NUMPY = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
+
+    def find_class(self, module, name):
+        if name == "NDArray" and module in ("mxnet_tpu.ndarray",
+                                            "mxnet_tpu_torch.ndarray"):
+            return NDArray
+        if name in self._NUMPY and module in (
+                "numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                "numpy.core.numeric", "numpy._core.numeric"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            "optimizer states: class %s.%s is not allowed" % (module, name))
+
+
+def load_states(blob):
+    """``{index: NDArray or None}`` from the bytes of
+    :meth:`Updater.get_states` (of either package), arrays on the CPU or
+    on the device they were pickled from."""
+    try:
+        return _StatesUnpickler(io.BytesIO(blob)).load()
+    except (pickle.UnpicklingError, EOFError, AttributeError,
+            ValueError) as e:
+        raise MXNetError("cannot read optimizer states: %s" % e) from e
+
+
 class Updater:
     """Per-index optimizer states; ``updater(index, grad, weight)``."""
 
@@ -198,6 +235,14 @@ class Updater:
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def set_states(self, states):
+        """Replace the states by a pickle of ``{index: state}`` (the bytes
+        of :meth:`get_states`, of either package)."""
+        self.states = load_states(states)
+
+    def get_states(self):
+        return pickle.dumps(self.states)
 
 
 def get_updater(optimizer):

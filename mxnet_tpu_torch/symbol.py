@@ -22,7 +22,7 @@ from .attribute import AttrScope
 from .base import MXNetError, NameManager
 from .ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "load_json"]
+__all__ = ["Symbol", "Variable", "load", "load_json"]
 
 
 class _Node:
@@ -306,6 +306,11 @@ class Symbol:
         }
         return json.dumps(payload, indent=2)
 
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` (``prefix-symbol.json``)."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     def __repr__(self):
         return "<Symbol %s>" % (self.name or self.list_outputs())
 
@@ -351,6 +356,12 @@ def load_json(json_str):
         nodes.append(_Node(op, jn["name"], attrs, inputs,
                            jn.get("misc_attrs", {})))
     return Symbol([(nodes[i], ci) for i, ci, *_ in payload["heads"]])
+
+
+def load(fname):
+    """The graph a :meth:`Symbol.save` of either package wrote."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 # -- generated sym.<op> composition functions ------------------------------

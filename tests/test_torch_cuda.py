@@ -16,6 +16,8 @@ and for the LSTM kernels ``1e-5`` (K4/K5) and ``1e-4`` (K6) of each
 output's largest magnitude (the error compounds over up to 60 steps).
 """
 
+import json
+import threading
 import time
 
 import numpy as np
@@ -831,3 +833,176 @@ def test_failed_capture_raises_and_never_runs_eagerly(cuda_device,
     with pytest.raises(mx.MXNetError, match="capture"):
         mod.update()
     assert mod._exec.graph_replays == 0 and not mod._exec._graphs
+
+
+# -- checkpoints and resume ----------------------------------------------------
+def _momenta(mod):
+    return {i: s.asnumpy() for i, s in mod._updater.states.items()
+            if s is not None}
+
+
+@pytest.mark.cuda
+def test_resumed_fused_fit_recaptures_on_loaded_momenta(cuda_device,
+                                                        monkeypatch,
+                                                        tmp_path):
+    """Parameters and momenta loaded into a module whose step is captured:
+    the parameters are copied into the bound arrays, the momenta arrive
+    as new tensors (from a states file), so the next step captures anew
+    and never replays the old momenta; it equals an eager step from the
+    same state."""
+    batches = _small_batches(6, seed=2)
+    mod, _, _ = _small_steps(monkeypatch, True, batches[:3])
+    assert mod._exec.graph_replays == 2
+    # the state to resume: another module, two eager steps further on
+    other, _, _ = _small_steps(monkeypatch, False, batches[3:5])
+    states = str(tmp_path / "resume.states")
+    other.save_optimizer_states(states)
+    arg, aux = mx.convert.module_params_to_numpy(other)
+    old = [s._t for s in mod._updater.states.values() if s is not None]
+    mod.set_params(arg, aux)
+    mod.load_optimizer_states(states)
+    assert all(s._t.is_cuda for s in mod._updater.states.values()
+               if s is not None)
+    assert not any(s._t is o for s, o in zip(
+        mod._updater.states.values(), old))
+    np.testing.assert_array_equal(
+        np.concatenate([v.ravel() for v in _momenta(mod).values()]),
+        np.concatenate([v.ravel() for v in _momenta(other).values()]))
+    _m, fused, _ = _small_steps(monkeypatch, True, batches[5:], mod=mod)
+    assert mod._exec.graph_replays == 2  # a new capture, no replay
+    (step,) = mod._exec._graphs.values()
+    bound = {id(t) for t in step.bound}
+    assert all(id(s._t) in bound for s in mod._updater.states.values()
+               if s is not None)
+    _m, eager, _ = _small_steps(monkeypatch, False, batches[5:], mod=other)
+    _assert_steps_agree(fused, eager)
+    _small_steps(monkeypatch, True, batches[:1], mod=mod)
+    assert mod._exec.graph_replays == 3
+
+
+@pytest.mark.cuda
+def test_snapshot_copies_while_a_step_captures(cuda_device, monkeypatch,
+                                               tmp_path):
+    """``fit`` with the captured step, device prefetch and a snapshot
+    every batch; a change of the weight-decay groups after batch 0 makes
+    batch 1 capture anew, and the writer's copy of snapshot 0 to the
+    host is held until that capture has begun, so it runs inside it.  The
+    capture must survive it, and the files equal the arrays at batch 0."""
+    from mxnet_tpu_torch import checkpoint as ck
+    from mxnet_tpu_torch.models import resnet
+
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1")
+    monkeypatch.setenv("MXNET_CKPT_KEEP_LAST", "100")
+    capturing, copied = threading.Event(), threading.Event()
+    begins = []
+    real_begin = torch.cuda.CUDAGraph.capture_begin
+    real_to_host = ck._to_host
+
+    def capture_begin(self, *a, **kw):
+        real_begin(self, *a, **kw)
+        begins.append(1)
+        if len(begins) == 2:
+            capturing.set()
+            assert copied.wait(30), "the writer's copy did not run"
+
+    def to_host(snap):
+        if snap.nbatch == 0:
+            assert capturing.wait(30), "batch 1 did not capture"
+        real_to_host(snap)
+        if snap.nbatch == 0:
+            copied.set()
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    monkeypatch.setattr(ck, "_to_host", to_host)
+    rs = np.random.RandomState(5)
+    x = rs.uniform(0, 255, (24, 3, 40, 40)).astype(np.float32)
+    y = rs.randint(0, 4, 24).astype(np.float32)
+    mod = mx.mod.Module(resnet.resnet(**SMALL), context=mx.gpu(0))
+    seen = {}
+
+    def at_batch_end(p):
+        if p.nbatch == 0:
+            arg, aux = mx.convert.module_params_to_numpy(mod)
+            seen.update({"arg:" + k: v for k, v in arg.items()})
+            seen.update({"aux:" + k: v for k, v in aux.items()})
+            seen["states"] = _momenta(mod)
+            mod._optimizer.wd_mult["fc1_bias"] = 0.0  # a new group
+
+    prefix = str(tmp_path / "ck")
+    mx.init.seed(3)
+    mod.fit(mx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+            prefetch_to_device=True, checkpoint_prefix=prefix,
+            checkpoint_every_n_batches=1, batch_end_callback=at_batch_end,
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
+                              "wd": 1e-4},
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2))
+    assert len(begins) == 2 and copied.is_set()
+    assert mod._exec.graph_replays == 4
+    m = mx.model.checkpoint_manifest(prefix)
+    (entry,) = [s for s in m["snapshots"] if s["nbatch"] == 0]
+    saved = mx.nd.load(str(tmp_path / entry["params"]))
+    assert sorted(saved) == sorted(k for k in seen if k != "states")
+    for k, v in saved.items():
+        np.testing.assert_array_equal(v.asnumpy(), seen[k], err_msg=k)
+    with open(str(tmp_path / entry["states"]), "rb") as f:
+        states = mx.optimizer.load_states(f.read())
+    assert sorted(seen["states"]) == sorted(
+        i for i, s in states.items() if s is not None)
+    for i, v in seen["states"].items():
+        np.testing.assert_array_equal(states[i].asnumpy(), v)
+
+
+@pytest.mark.cuda
+def test_states_from_a_cpu_pickle_land_on_the_card(cuda_device,
+                                                   monkeypatch, tmp_path):
+    """Optimizer states pickled from CPU arrays, through a states file and
+    through a snapshot's bytes: every momentum ends on ``cuda:0`` and the
+    captured step takes them."""
+    import pickle
+
+    mod = _small_module(mx.gpu(0))
+    names = mod._param_names
+    rs = np.random.RandomState(1)
+    cpu_states = {i: mx.nd.array(rs.randn(*mod._exec.arg_dict[n].shape)
+                                 .astype(np.float32), ctx=mx.cpu())
+                  for i, n in enumerate(names)}
+    blob = pickle.dumps(cpu_states)
+    path = str(tmp_path / "cpu.states")
+    with open(path, "wb") as f:
+        f.write(blob)
+    for load in (lambda: mod.load_optimizer_states(path),
+                 lambda: mod._restore_opt_snapshot(
+                     blob, {"num_update": 7, "index_update_count": {
+                         str(i): 7 for i in range(len(names))}})):
+        load()
+        assert sorted(mod._updater.states) == list(range(len(names)))
+        for i, s in mod._updater.states.items():
+            assert s._t.device == cuda_device
+            np.testing.assert_array_equal(s.asnumpy(),
+                                          cpu_states[i].asnumpy())
+    assert mod._optimizer.num_update == 7
+    _small_steps(monkeypatch, True, _small_batches(2), mod=mod)
+    assert mod._exec.graph_replays == 1
+
+
+@pytest.mark.cuda
+def test_device_metric_state_is_one_sync(cuda_device):
+    rs = np.random.RandomState(0)
+    make = lambda: mx.metric.create(  # noqa: E731
+        ["acc", mx.metric.TopKAccuracy(top_k=3), "ce"])
+    dev, host = mx.metric.DeviceMetric(make()), make()
+    for _ in range(3):
+        lab = rs.randint(0, 10, 32).astype(np.float32)
+        p = rs.dirichlet(np.ones(10), 32).astype(np.float32)
+        dev.update([mx.nd.array(lab, ctx=mx.gpu(0))],
+                   [mx.nd.array(p, ctx=mx.gpu(0))])
+        host.update([mx.nd.array(lab)], [mx.nd.array(p)])
+    state = dev.get_state()
+    assert dev.sync_count == 1
+    want = host.get_state()
+    for got, exp in zip(state["children"], want["children"]):
+        assert got["num_inst"] == exp["num_inst"]
+        assert got["sum_metric"] == pytest.approx(exp["sum_metric"],
+                                                  rel=1e-5)
+    json.dumps(state)

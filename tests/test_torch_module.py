@@ -163,7 +163,8 @@ def test_module_fit_matches_jax(init_params, monkeypatch):
 
 def test_module_entry_points(tmp_path, monkeypatch):
     """Module defaults to the card; fit raises on the options that are
-    not ported; score, predict and the params file run on the CPU."""
+    not ported (and on ``resume`` without a prefix); score, predict and
+    the params file run on the CPU."""
     net = tresnet.resnet(**RESNET)
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
@@ -172,11 +173,12 @@ def test_module_entry_points(tmp_path, monkeypatch):
     x, y = _data(6, 3)
     it = tmx.io.NDArrayIter(x, y, batch_size=BATCH)
     mod = tmx.mod.Module(net, context=tmx.cpu())
-    for kw in ({"checkpoint_prefix": "x"}, {"nan_policy": "raise"},
-               {"resume": "auto"}, {"monitor": object()},
+    for kw in ({"nan_policy": "raise"}, {"monitor": object()},
                {"elastic": True}):
         with pytest.raises(tmx.MXNetError, match="not ported yet"):
             mod.fit(it, num_epoch=1, **kw)
+    with pytest.raises(tmx.MXNetError, match="needs checkpoint_prefix"):
+        mod.fit(it, num_epoch=1, resume="auto")
     mod.bind(it.provide_data, it.provide_label)
     mod.init_params(tmx.init.Xavier(magnitude=2))
     out = mod.predict(it)
