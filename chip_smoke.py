@@ -16,6 +16,16 @@
    operations over the 495 TFLOP/s TF32 peak, since 3xTF32 takes three
    products per product, and the bytes over 3.35 TB/s; the f32
    CUDA-core figure is printed beside it).
+3b. K3b phase: the flash-attention backward (K3b) at B in {1, 4}, H=8,
+   L=2048, D=128, f32, causal and not, then a ragged shape (B=2, Lq=1337,
+   Lk=1901, causal) and the full causal shape with a nonzero dlse, on
+   (B, L, H*D) -> (B, H, L, D) views as MultiHeadAttention passes them:
+   dq, dk, dv held against the plain backward on the card (TF32 off)
+   within ``1e-4`` of each output's largest magnitude, in the strides of
+   q, k, v, bit for bit across two launches; timed beside the plain
+   version, the backward of ``F.scaled_dot_product_attention`` (a
+   yardstick the port never calls) and the bound (five products, 10*D
+   operations per attended pair, at the 3xTF32 rate).
 4. BatchNorm kernel phase: at every distinct BatchNorm input of the
    ResNet-50 b128 training step (shape, fix_gamma, fused ReLU), K1 and K2
    held against their plain versions (max error within ``1e-4`` of each
@@ -54,6 +64,27 @@
    finiteness and rows that sum to 1, and the 1-row answer is held against
    the same model computed in plain PyTorch with the plain attention.  The
    K3 launch count must equal the dispatches (warm-up included).
+6b. LM training phase: ``Module(build_lm(32000, 1024, 8, 2048)).fit`` on
+   the default context (the card), batch 4, one epoch of 8 batches of the
+   copy task of ``example/long-context/train_lm.py`` from ``--seed``, Adam
+   at the example's lr 1e-2, ``Perplexity(ignore_label=None)``, the
+   initializer ``fit`` defaults to (seeded), then ``score``.  It requires
+   one K3 and one K3b launch per training batch, one K3 per score batch,
+   and no plain attention called on the card; the Adam moments stay on
+   the card.  Prints the ms per step (CUDA events between batch ends, the
+   first step apart; the host copy ``Perplexity`` takes is inside it),
+   tokens/s, the host copy and the metric update apart, a
+   ``torch.profiler`` split of one step (K3, K3b, cuBLAS, ...), peak
+   memory and the finite perplexities; then the same fit with the plain
+   attention rerouted on the card, its perplexities printed beside.
+6c. LM step parity: one full-width step's gradients (b4, Xavier from
+   ``--seed``) through K3 and K3b against the same step with the plain
+   attention rerouted on the card: the FFN pre-activations of the two
+   forwards within ``1e-4`` of their magnitude (units on opposite sides
+   of 0 counted and printed; the K3 step takes the plain step's ReLU
+   mask), then each parameter's gradient within ``1e-4`` of its norm,
+   and K3b alone (after the same K3 forward, against the plain
+   backward) within ``1e-4`` of each norm.
 7. Training phase: ``Module(resnet50).fit`` on the default context (the
    card) at full width (224x224x3, 1000 classes, f32, batch 128) over
    6 batches of synthetic data from ``--seed``: SGD with
@@ -133,8 +164,8 @@
    (plain versions) from the same weights; each parameter's update
    within 1e-4 of its norm (3x the floor if an embedding perturbed by
    1e-7 moves the CPU's own update by more).
-11. Prints the kernel table (K1-K6) as one JSON line, the card's name and
-   power limit, then the result line.
+11. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
+   name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
 """
@@ -173,6 +204,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PARITY_PERTURBATIONS = 3
 BUCKETS = (1, 4)
 REQUEST_ROWS = (1, 4, 4, 4, 4, 4)
+#: the LM training phase: train_lm.py's Adam lr, batches of the copy task
+LM_BATCH, LM_BATCHES, LM_LR = 4, 8, 1e-2
 #: the fused-LSTM LM of example/rnn/fused_lstm_bucketing.py at full width
 LSTM_VOCAB, LSTM_EMBED, LSTM_HIDDEN, LSTM_LAYERS = 10000, 200, 200, 2
 LSTM_BATCH, LSTM_BUCKETS = 32, (10, 20, 30, 40, 50, 60)
@@ -245,6 +278,110 @@ def kernel_phase(att, dev, seed):
                      100 * bound_ms / ms, plain_ms, lib_ms, bound_ms,
                      bound_by, flops / PEAK_F32_FLOPS * 1e3), flush=True)
             del q, k, v, out, lse, pout, plse
+    return rows
+
+
+def _pairs(lq, lk, causal):
+    """(query, key) pairs attended: all of them, or under the top-left
+    causal mask those with qi >= ki."""
+    if not causal:
+        return lq * lk
+    n = min(lq, lk)
+    return n * (n + 1) // 2 + max(0, lq - lk) * lk
+
+
+def _attention_bwd_bound(b, h, lq, lk, d, causal, with_dlse):
+    """(bound_ms, bound_by, flops) of K3b: the five products (S = Q K^T,
+    dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) need 10*D
+    operations per (query, key) pair this data attends, at the 3xTF32
+    rate as K3 (three TF32 products per product); q, k, v, out, do, lse
+    (and dlse) read once, dq, dk, dv written once."""
+    flops = 10.0 * b * h * d * _pairs(lq, lk, causal)
+    words = b * h * (4 * lq * d + 4 * lk * d + lq * (2 if with_dlse else 1))
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, 4.0 * words / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", flops
+    return t_bytes * 1e3, "bytes", flops
+
+
+def k3b_kernel_phase(att, dev, seed):
+    """K3b against its plain version on the card (TF32 off for the plain
+    version), each of dq, dk, dv within ``1e-4`` of its largest
+    magnitude, on (B, L, H*D) -> (B, H, L, D) views as MultiHeadAttention
+    passes them, repeating bit for bit across two launches; at B in {1, 4},
+    L = 2048, causal and not, then a ragged shape and the full shape with
+    a nonzero dlse.  Timed beside the plain version, the backward of
+    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
+    and the bound."""
+    rows = {}
+    cases = [(b, SEQ, SEQ, causal, False) for b in (1, 4)
+             for causal in (True, False)]
+    cases += [(2, 1337, 1901, True, True), (4, SEQ, SEQ, True, True)]
+    scale = 1.0 / math.sqrt(128)
+    for b, lq, lk, causal, with_dlse in cases:
+        rs = np.random.RandomState(seed + 31 * b + lq)
+
+        def heads(n):
+            t = rs.standard_normal((b, n, EMBED)).astype(np.float32)
+            return torch.from_numpy(t).to(dev).reshape(
+                b, n, HEADS, EMBED // HEADS).transpose(1, 2)
+
+        q, k, v, do = heads(lq), heads(lk), heads(lk), heads(lq)
+        dlse = torch.from_numpy(rs.standard_normal((b, HEADS, lq)).astype(
+            np.float32)).to(dev) if with_dlse else None
+        out, lse = att.flash_attention_cuda(q, k, v, causal, scale)
+
+        def kernel():
+            return att.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse,
+                                                causal, scale)
+
+        def plain():
+            return att.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
+                                                 causal, scale)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise RuntimeError("K3b's gradients differ between two launches "
+                               "at B=%d Lq=%d Lk=%d causal=%s"
+                               % (b, lq, lk, causal))
+        want = plain()
+        rel = max(_rel_err(g, w) for g, w in zip(got, want))
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not rel <= 1e-4:
+            raise RuntimeError("K3b disagrees with its plain version at B=%d "
+                               "Lq=%d Lk=%d causal=%s dlse=%s: %.3g of the "
+                               "output's magnitude (limit 1e-4)"
+                               % (b, lq, lk, causal, with_dlse, rel))
+        if any(g.stride() != t.stride() for g, t in zip(got, (q, k, v))):
+            raise RuntimeError("K3b's gradients do not take the strides of "
+                               "q, k and v")
+        del again, want
+        ms = _time_ms(kernel, 10)
+        plain_ms = _time_ms(plain, 3, warmup=1)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            ref = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 scale=scale)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            ref, leaves, do, retain_graph=True), 10)
+        bound_ms, bound_by, flops = _attention_bwd_bound(
+            b, HEADS, lq, lk, 128, causal, with_dlse)
+        rows[(b, lq, lk, causal, with_dlse)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        print("kernel flash_attention_bwd (K3b) B=%d H=%d Lq=%d Lk=%d D=128 "
+              "causal=%s dlse=%s: max_abs_err %.3g (%.2g of the magnitude), "
+              "bit for bit across launches, kernel %.4f ms (%.1f TFLOP/s of "
+              "f32 work, %.0f%% of the bound), plain %.4f ms, sdpa backward "
+              "%.4f ms, bound %.4f ms (%s, 3xTF32 at 495 TFLOP/s; on the "
+              "CUDA cores at 67 TFLOP/s f32 it would be %.4f ms)"
+              % (b, HEADS, lq, lk, causal, with_dlse, err, rel, ms,
+                 flops / ms / 1e9, 100 * bound_ms / ms, plain_ms, lib_ms,
+                 bound_ms, bound_by, flops / PEAK_F32_FLOPS * 1e3),
+              flush=True)
+        del q, k, v, do, dlse, out, lse, got, leaves, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -377,6 +514,365 @@ def serving_phase(mx, att, dev, seed):
             del out
         reg.close()
     return launches
+
+
+# -- LM training through K3 and K3b (phases 6b and 6c) -----------------------
+@contextlib.contextmanager
+def attention_plain_refused(att):
+    """Within the block the plain attention versions raise on CUDA
+    tensors: the card's path must take K3 and K3b."""
+    names = ("flash_attention_plain", "flash_attention_bwd_plain")
+    saved = {k: getattr(att, k) for k in names}
+
+    def refuse(name):
+        def plain(q, *args, **kw):
+            if q.is_cuda:
+                raise RuntimeError("%s called on the card" % name)
+            return saved[name](q, *args, **kw)
+        return plain
+
+    for k in names:
+        setattr(att, k, refuse(k))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(att, k, v)
+
+
+@contextlib.contextmanager
+def attention_rerouted(att):
+    """Within the block the attention autograd function takes the plain
+    versions on the card where it would launch K3 and K3b."""
+    saved = {k: getattr(att, k) for k in ("flash_attention_cuda",
+                                          "flash_attention_bwd_cuda")}
+    att.flash_attention_cuda = lambda *a: att.flash_attention_plain(*a)
+    att.flash_attention_bwd_cuda = \
+        lambda *a: att.flash_attention_bwd_plain(*a)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(att, k, v)
+
+
+def lm_training_phase(mx, att, seed):
+    """``Module(build_lm).fit`` at full width on the card with Adam, then
+    ``score``: one K3 and one K3b launch per training batch, one K3 per
+    score batch, no plain attention on the card."""
+    from mxnet_tpu_torch.models import build_lm, copy_task
+
+    x, y = copy_task(LM_BATCH * LM_BATCHES, SEQ, VOCAB,
+                     np.random.RandomState(seed))
+    it = mx.io.NDArrayIter(x, y, batch_size=LM_BATCH,
+                           label_name="softmax_label")
+    mod = mx.mod.Module(build_lm(VOCAB, EMBED, HEADS, SEQ))
+    events, seen, running = [], [], []
+
+    def mark(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        running.append(param.eval_metric.get_name_value()[0][1])
+
+    train_metric = mx.metric.Perplexity(ignore_label=None)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    with attention_plain_refused(att):
+        # -- the main path: counts from 0, fit of 8 batches, then score --
+        att.flash_attention_cuda.launches = 0
+        att.flash_attention_bwd_cuda.launches = 0
+        mx.init.seed(seed)
+        start.record()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params={"learning_rate": LM_LR},
+                eval_metric=train_metric, batch_end_callback=mark)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = (att.flash_attention_cuda.launches,
+                        att.flash_attention_bwd_cuda.launches)
+        t0 = time.perf_counter()
+        (_, ppl), = mod.score(it, mx.metric.Perplexity(ignore_label=None),
+                              batch_end_callback=lambda p: seen.append(1))
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        launches = (att.flash_attention_cuda.launches,
+                    att.flash_attention_bwd_cuda.launches)
+        # -- end of the main path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_train, n_score = len(events), len(seen)
+    want_fit = (n_train, n_train)
+    want = (n_train + n_score, n_train)
+    n_params = sum(a._t.numel() for a in mod.get_params()[0].values())
+    print("lm training Module(build_lm vocab %d embed %d heads %d seq %d, "
+          "%d params).fit on the card, batch %d, Adam lr %g: %d training "
+          "batches in %.2f s (bind and init included), score of %d batches "
+          "%.2f s; K3/K3b launches %s in fit (expected %s), %s after score "
+          "(expected %s); peak memory allocated %.3f GB"
+          % (VOCAB, EMBED, HEADS, SEQ, n_params, LM_BATCH, LM_LR, n_train,
+             fit_s, n_score, score_s, fit_launches, want_fit, launches, want,
+             peak_gb), flush=True)
+    if n_train != LM_BATCHES or fit_launches != want_fit \
+            or launches != want:
+        raise RuntimeError("LM training launched K3/K3b %s times in fit and "
+                           "%s after score, expected %s and %s"
+                           % (fit_launches, launches, want_fit, want))
+    step_ms = [start.elapsed_time(events[0])] + [
+        a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    steady = float(np.median(step_ms[1:]))
+    (_, train_ppl), = train_metric.get_name_value()
+    print("lm training step ms (CUDA events between batch ends, the host "
+          "copy for Perplexity included) %s; median after the first %.2f "
+          "ms = %.0f tokens/s; train perplexity %.4f, score perplexity %.4f "
+          "(vocab %d: a uniform guess scores %d)"
+          % (["%.2f" % t for t in step_ms], steady,
+             LM_BATCH * SEQ / steady * 1e3, train_ppl, ppl, VOCAB, VOCAB),
+          flush=True)
+    arg, _ = mod.get_params()
+    bad = [k for k, v in arg.items() if not torch.isfinite(v._t).all()]
+    dev = mod._context[0].torch_device()
+    off_card = [i for i, st in mod._updater.states.items()
+                if any(a._t.device != dev for a in st)]
+    if bad or off_card or not (np.isfinite(ppl) and np.isfinite(train_ppl)):
+        raise RuntimeError("LM training gave non-finite params %s, states "
+                           "off the card %s or perplexities %s, %s"
+                           % (bad, off_card, train_ppl, ppl))
+    it.reset()
+    batch = next(it)
+    lm_host_copy(mx, mod, batch)
+    lm_profile(mx, mod, batch, steady)
+    del mod
+    torch.cuda.empty_cache()
+    lm_plain_witness(mx, att, seed, it, running, ppl)
+    return launches
+
+
+def lm_plain_witness(mx, att, seed, it, running, ppl):
+    """The same fit (seed, data, Adam, lr) with the plain attention
+    rerouted on the card, its running train perplexity batch by batch
+    and its score printed beside those of the K3/K3b fit: whether a
+    trajectory at this lr comes from the kernels or from the model."""
+    from mxnet_tpu_torch.models import build_lm
+
+    mod = mx.mod.Module(build_lm(VOCAB, EMBED, HEADS, SEQ))
+    plain = []
+    it.reset()
+    with attention_rerouted(att):
+        mx.init.seed(seed)
+        mod.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params={"learning_rate": LM_LR},
+                eval_metric=mx.metric.Perplexity(ignore_label=None),
+                batch_end_callback=lambda p: plain.append(
+                    p.eval_metric.get_name_value()[0][1]))
+        (_, plain_ppl), = mod.score(
+            it, mx.metric.Perplexity(ignore_label=None))
+    print("lm witness: running train perplexity by batch through K3/K3b "
+          "%s, through the plain attention on the card %s; score %.6g "
+          "against %.6g" % (["%.6g" % v for v in running],
+                            ["%.6g" % v for v in plain], ppl, plain_ppl),
+          flush=True)
+    del mod
+    torch.cuda.empty_cache()
+
+
+def lm_host_copy(mx, mod, batch):
+    """The device forward of one batch, then the host copy of its
+    (B*L, 32000) output and the host ``Perplexity`` update on it, as the
+    metric takes them on every batch."""
+    mod.forward(batch, is_train=False)
+    out = mod.get_outputs()[0]
+    dev_ms = _time_ms(lambda: mod.forward(batch, is_train=False), 3,
+                      warmup=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = out.asnumpy()
+    copy_s = time.perf_counter() - t
+    metric = mx.metric.Perplexity(ignore_label=None)
+    t = time.perf_counter()
+    metric.update(batch.label, [host])
+    metric_s = time.perf_counter() - t
+    print("lm eval forward %.3f ms on the device; host copy of the output "
+          "%.4f s (%.3f GB, %.2f GB/s); Perplexity update on the host copy "
+          "%.4f s" % (dev_ms, copy_s, host.nbytes / 1e9,
+                      host.nbytes / copy_s / 1e9, metric_s), flush=True)
+
+
+def lm_profile(mx, mod, batch, steady_ms):
+    """One training step (forward_backward, update, the host metric) under
+    torch.profiler: device time by group (K3, K3b, cuBLAS, ...) and the
+    device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    metric = mx.metric.Perplexity(ignore_label=None)
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        wall = (time.perf_counter() - t) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if dev_us(e) > 0
+               and e.device_type.name == "CUDA"]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        print("lm profile: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return
+    rules = (("K3 (flash_fwd)", lambda k: "flash_fwd" in k),
+             ("K3b (flash_bwd)", lambda k: "flash_bwd" in k),
+             ("memcpy", lambda k: "memcpy" in k),
+             ("cuBLAS gemm", lambda k: "gemm" in k or "cutlass" in k
+              or "xmma" in k),
+             ("softmax", lambda k: "softmax" in k),
+             ("embedding", lambda k: "embedding" in k or "index" in k),
+             ("reduce", lambda k: "reduce" in k),
+             ("elementwise (Adam, SoftmaxOutput's gradient, ...)",
+              lambda k: "elementwise" in k or "vectorized" in k))
+    groups = {}
+    for e in kernels:
+        k = e.key.lower()
+        name = next((n for n, test in rules if test(k)), "other")
+        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
+    busy = total - groups.get("memcpy", 0.0)
+    print("lm profile of one training step with its metric update: wall "
+          "%.2f ms (steady step %.2f ms), device busy %.3f ms with the "
+          "copies (idle share %.1f%%), kernels alone %.3f ms (idle share "
+          "%.1f%% without the copies); by group: %s" % (
+              wall, steady_ms, total, 100 * max(0.0, 1 - total / wall),
+              busy, 100 * max(0.0, 1 - busy / wall),
+              ", ".join("%s %.3f ms" % kv for kv in sorted(
+                  groups.items(), key=lambda kv: -kv[1]))), flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+        print("lm profile  %8.3f ms  x%-4d %s" % (
+            dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
+
+
+@contextlib.contextmanager
+def attention_bwd_rerouted(att):
+    """Within the block the attention autograd function takes the plain
+    backward on the card where it would launch K3b (K3 still runs)."""
+    saved = att.flash_attention_bwd_cuda
+    att.flash_attention_bwd_cuda = \
+        lambda *a: att.flash_attention_bwd_plain(*a)
+    try:
+        yield
+    finally:
+        att.flash_attention_bwd_cuda = saved
+
+
+@contextlib.contextmanager
+def relu_mask_of(nn_ops, pre):
+    """Within the block the ReLU on the card appends its input to the
+    list ``pre``; from the second input on it takes the mask of the
+    first, ``pre[0] > 0``, in place of its own, so that two forwards
+    whose pre-activations lie within their tolerance of each other pass
+    their gradients through the same units."""
+    relu = nn_ops._ACTS["relu"]
+
+    def masked(x):
+        if not x.is_cuda:  # the shape inference of the bind
+            return relu(x)
+        pre.append(x.detach().clone())
+        return relu(x) if len(pre) == 1 else torch.where(pre[0] > 0, x, 0.0)
+
+    nn_ops._ACTS["relu"] = masked
+    try:
+        yield
+    finally:
+        nn_ops._ACTS["relu"] = relu
+
+
+def lm_parity_phase(mx, att, seed):
+    """One full-width training step's gradients (b4, Xavier from
+    ``--seed``) through K3 and K3b against the same step with the plain
+    attention rerouted on the card, from the same weights and batch:
+    each parameter's gradient within ``1e-4`` of its norm.
+
+    The FFN ReLU of the K3 step takes the mask of the plain step's
+    pre-activation.  A unit whose pre-activation lies within rounding of
+    0 (PR 10 saw one of 16,777,216 at 1.86e-10) may take either side in
+    either forward, and the whole gradient term that flows through it
+    then moves every gradient below the FFN by ~4e-4 of its norm, which
+    no tolerance of the attention decides.  So the check is that the two
+    pre-activations agree within ``1e-4`` of their magnitude (units on
+    opposite sides counted and printed), and then the gradients, through
+    the same units, within ``1e-4``.  K3b alone (the same K3 forward,
+    then K3b against the plain backward) is held within ``1e-4`` too."""
+    from mxnet_tpu_torch.models import build_lm, copy_task
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    x, y = copy_task(LM_BATCH, SEQ, VOCAB, np.random.RandomState(seed + 7))
+    mod = mx.mod.Module(build_lm(VOCAB, EMBED, HEADS, SEQ))
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mx.init.seed(seed)
+    mod.init_params(mx.init.Xavier())
+    batch = mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)])
+    pre = []
+
+    def grads():
+        del pre[1:]
+        with relu_mask_of(nn_ops, pre):
+            mod.forward_backward(batch)
+        torch.cuda.synchronize()
+        return {n: mod._exec.grad_dict[n]._t.clone()
+                for n in mod._param_names}
+
+    with attention_rerouted(att):
+        want = grads()
+    f0 = att.flash_attention_cuda.launches
+    b0 = att.flash_attention_bwd_cuda.launches
+    got = grads()
+    used = (att.flash_attention_cuda.launches - f0,
+            att.flash_attention_bwd_cuda.launches - b0)
+    if used != (1, 1) or len(pre) != 2:
+        raise RuntimeError("the parity step launched K3/K3b %s times and "
+                           "ran %d ReLUs, expected (1, 1) and 2"
+                           % (used, len(pre)))
+    rel = _rel_err(pre[1], pre[0])
+    flipped = (pre[1] > 0) != (pre[0] > 0)
+    flips = int(flipped.sum().item())
+    near = pre[0].abs()[flipped].max().item() if flips else 0.0
+    print("lm parity forward: the FFN pre-activation through K3 against "
+          "the plain attention %.3g of its magnitude (limit 1e-4); units "
+          "on opposite sides of 0: %d of %d (largest |plain pre-activation| "
+          "among them %.3g); the K3 step takes the plain step's mask"
+          % (rel, flips, pre[0].numel(), near), flush=True)
+    if not rel <= 1e-4:
+        raise RuntimeError("the FFN pre-activations of the K3 and plain "
+                           "steps disagree: %.3g" % rel)
+    with attention_bwd_rerouted(att):
+        fwd_only = grads()
+    worst = 0.0
+    for k in sorted(want):
+        norm = max(want[k].norm().item(), 1e-30)
+        dist = (got[k] - want[k]).norm().item() / norm
+        bwd = (got[k] - fwd_only[k]).norm().item() / norm
+        worst = max(worst, dist / 1e-4, bwd / 1e-4)
+        print("lm parity %s (gradient norm %.4g): K3/K3b step vs the plain "
+              "attention %.3g of the norm; K3b alone after the same K3 "
+              "forward %.3g (limits 1e-4)" % (k, norm, dist, bwd),
+              flush=True)
+        if not (dist <= 1e-4 and bwd <= 1e-4):
+            raise RuntimeError("the gradients of %s disagree: %.3g of the "
+                               "norm, K3b alone %.3g (limits 1e-4)"
+                               % (k, dist, bwd))
+    print("lm parity one step b%d L=%d: worst distance over its limit %.3g"
+          % (LM_BATCH, SEQ, worst), flush=True)
+    del mod, got, want, fwd_only, pre[:]
+    torch.cuda.empty_cache()
 
 
 def _scaled_err(got, want):
@@ -2250,6 +2746,7 @@ def main():
                 print("  %s: %s" % (lib, line.strip()), flush=True)
 
     rows = kernel_phase(att, dev, args.seed)
+    k3b_rows = k3b_kernel_phase(att, dev, args.seed)
     configs = resnet_bn_configs(mx, TRAIN_BATCH)
     if sum(configs.values()) != 51:
         raise RuntimeError("ResNet-50 has %d BatchNorms, expected 51"
@@ -2258,6 +2755,8 @@ def main():
                                           parent_bn)
     lstm_rows = lstm_kernel_phase(rk, dev, args.seed)
     launches = serving_phase(mx, att, dev, args.seed)
+    lm_k3, lm_k3b = lm_training_phase(mx, att, args.seed)
+    lm_parity_phase(mx, att, args.seed)
     (k1_launches, k2_launches), classic = training_phase(
         mx, bnk, args.seed, TRAIN_STEPS, bn_totals)
     sync_free = sync_free_phase(mx, bnk, args.seed, TRAIN_STEPS, classic)
@@ -2268,12 +2767,19 @@ def main():
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"
+    # K3's launches: serving's dispatches and the LM fit and score; K3b's:
+    # the LM fit (its time at the training step's shape, B=4 causal)
     # the BatchNorm rows: times summed over the 51 BatchNorms of one b128
     # step; launches over the whole training run (51 per step)
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="mxnet_tpu_torch/csrc/flash_attention.cu",
                     replaces="mxnet_tpu/ops/attention.py:116",
-                    launches=launches, **main_row),
+                    launches=launches + lm_k3, **main_row),
+               dict(name="flash_attention_bwd", route="cuda",
+                    source="mxnet_tpu_torch/csrc/flash_attention.cu",
+                    replaces="mxnet_tpu/ops/attention.py:253",
+                    launches=lm_k3b,
+                    **k3b_rows[(4, SEQ, SEQ, True, False)]),
                dict(name="batch_norm_fwd", route="cuda", source=source,
                     replaces="mxnet_tpu/ops/bn_pallas.py:87",
                     launches=k1_launches, **bn_totals["fwd"]),

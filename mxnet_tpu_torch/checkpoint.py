@@ -2,7 +2,7 @@
 asynchronously (counterpart of ``mxnet_tpu/checkpoint.py``).
 
 * **Capture on the device.**  A snapshot starts as device-to-device copies
-  of every parameter, auxiliary state and momentum
+  of every parameter, auxiliary state and optimizer state array
   (``Module._capture_state_arrays``: one flat buffer per dtype, a few
   launches, no host sync) and a ``torch.cuda.Event`` recorded after them.
   The small host state (iterator position, random state, metric sums,
@@ -35,7 +35,6 @@ import hashlib
 import json
 import logging
 import os
-import pickle
 import threading
 import time
 
@@ -44,6 +43,7 @@ import torch
 from . import telemetry as _telemetry
 from .base import MXNetError, atomic_write, atomic_write_bytes
 from .ndarray import NDArray
+from .optimizer import dumps_states, map_state, state_arrays
 
 __all__ = ["TrainingPreempted", "Snapshot", "TrainingState",
            "AsyncSnapshotWriter", "snapshot_path", "write_snapshot",
@@ -75,10 +75,10 @@ class Snapshot:
     """One captured mid-epoch training state, before it is written.
 
     ``arg_params``/``aux_params`` map names to NDArray device copies and
-    ``opt_states`` is the updater's ``{index: NDArray or None}`` of copies
-    (None without an updater); ``ready`` is the CUDA event recorded after
-    the copies on the training stream (None on the CPU).  The rest are
-    JSON-able host dicts."""
+    ``opt_states`` is the updater's ``{index: state}`` of copies, a state
+    being None, an NDArray or a tuple of them (None without an updater);
+    ``ready`` is the CUDA event recorded after the copies on the training
+    stream (None on the CPU).  The rest are JSON-able host dicts."""
 
     __slots__ = ("epoch", "nbatch", "arg_params", "aux_params",
                  "opt_states", "opt_counts", "rng_state", "metric_state",
@@ -140,8 +140,8 @@ def snapshot_path(prefix, epoch, nbatch, kind="params"):
 
 def _leaves(snap):
     out = list(snap.arg_params.values()) + list(snap.aux_params.values())
-    out += [s for s in (snap.opt_states or {}).values()
-            if isinstance(s, NDArray)]
+    out += [a for s in (snap.opt_states or {}).values()
+            for a in state_arrays(s)]
     return out
 
 
@@ -182,7 +182,7 @@ def _to_host(snap):
     snap.arg_params = {k: _moved(v) for k, v in snap.arg_params.items()}
     snap.aux_params = {k: _moved(v) for k, v in snap.aux_params.items()}
     if snap.opt_states is not None:
-        snap.opt_states = {i: _moved(s) if isinstance(s, NDArray) else s
+        snap.opt_states = {i: map_state(_moved, s)
                            for i, s in snap.opt_states.items()}
     snap.ready = None
 
@@ -212,7 +212,7 @@ def write_snapshot(prefix, snap, logger=logging, keep_last=None):
     if snap.opt_states is not None:
         states_path = snapshot_path(prefix, snap.epoch, snap.nbatch,
                                     "states")
-        blob = pickle.dumps(snap.opt_states)
+        blob = dumps_states(snap.opt_states)
         atomic_write_bytes(states_path, blob, durable=False)
         entry["states"] = os.path.basename(states_path)
         entry["states_sha256"] = hashlib.sha256(blob).hexdigest()

@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), f32 in and out, on the
-// tensor cores at f32 accuracy (3xTF32).
+// Flash attention for Hopper (sm_90a), f32 in and out, on the tensor
+// cores at f32 accuracy (3xTF32): the forward K3 (first) and the backward
+// K3b (below it).
 //
 // Replaces mxnet_tpu/ops/attention.py::_fa_kernel (reached through
 // _flash_pallas).  It computes the same function, not the same blocks:
@@ -349,6 +350,450 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// K3b: the backward.  Replaces no Pallas kernel: the JAX package's backward
+// is plain JAX, mxnet_tpu/ops/attention.py::_flash_bwd_core (FA2 blockwise
+// over K, wired in by jax.custom_vjp for out and for the (out, lse) pair).
+// It computes the same function from q, k, v, the forward's out and lse,
+// the cotangent do of out and an optional cotangent dlse of lse:
+//
+//   Dd  = sum_d do * out - dlse                    (B, H, Lq), one per row
+//   p   = exp(scale * q.k - lse)  [0 where masked: causal qi < ki, ragged]
+//   ds  = p * (do.v - Dd) * scale
+//   dq  = ds K,   dk = ds^T Q,   dv = p^T dO
+//
+// What bounds it: five products of 2*L*L*D per (batch, head) where the
+// forward has two, so operations again (the bytes read and written are
+// about 8 * B*H*L*D floats, 0.08 ms at L = 2048, B = 4).  Each product is
+// 3xTF32 on mma.sync, as in the forward (one TF32 pass misses 1e-4).
+//
+// Design: three launches, no atomics, so every output repeats bit for bit.
+//   * a row pass: one warp per query row writes Dd (fixed shuffle sums);
+//   * dK/dV: one CTA of 8 warps per (batch*head, 128-key tile); each warp
+//     owns 16 keys and holds their dK and dV (16 x D each) in registers;
+//     K and V stay in shared memory, and query tiles of 32 rows (Q, dO,
+//     lse, Dd) stream through a two-stage cp.async ring, from the first
+//     tile that can see the keys (causal) to the last.  S^T = K Q^T and
+//     dP^T = V dO^T come out as C fragments with keys as rows; P^T and
+//     dS^T feed dV += P^T dO and dK += dS^T Q as A fragments with the
+//     forward's key renumbering (here of queries);
+//   * dQ: one CTA of 8 warps per (batch*head, 128-row query tile), the
+//     forward's layout: Q and dO in shared memory, key tiles of 32 (K, V)
+//     through a two-stage ring up to the diagonal; S and dP in registers,
+//     dQ += dS K from the C fragments.
+// S and dP are computed twice (in both kernels): seven products where five
+// are needed, in exchange for no cross-CTA reduction.  dq, dk and dv are
+// written through their own strides.
+// Shared memory: dK/dV 2 x 128 x 132 (K, V) + 2 stages of 2 x 32 x 132
+// (Q, dO) + lse and Dd, 198.5 KB; dQ 2 x 128 x 132 + 2 stages of
+// 2 x 32 x 132, 198 KB; one CTA per SM.
+
+constexpr int BKV = 128;  // keys per dK/dV CTA (8 warps x 16)
+constexpr int BQS = 32;   // query rows per dK/dV stage
+constexpr int BKS = 32;   // keys per dQ stage
+constexpr int TILE_FLOATS = 128 * LD;  // a 128-row tile of K, V, Q or dO
+constexpr int STAGE_FLOATS = 32 * LD;  // a 32-row stage tile
+constexpr size_t DKV_SMEM_BYTES =
+    (size_t)(2 * TILE_FLOATS + 4 * STAGE_FLOATS + 4 * BQS) * sizeof(float);
+constexpr size_t DQ_SMEM_BYTES =
+    (size_t)(2 * TILE_FLOATS + 4 * STAGE_FLOATS) * sizeof(float);
+
+struct BwdParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* out;
+  const float* dout;
+  const float* lse;
+  const float* dlse;  // null: no lse cotangent
+  float* dq;
+  float* dk;
+  float* dv;
+  float* dd;  // (B, H, Lq): sum_d do * out - dlse
+  int B, H, Lq, Lk, D;
+  long long q_sb, q_sh, q_sl;
+  long long k_sb, k_sh, k_sl;
+  long long v_sb, v_sh, v_sl;
+  long long o_sb, o_sh, o_sl;
+  long long do_sb, do_sh, do_sl;
+  long long dq_sb, dq_sh, dq_sl;
+  long long dk_sb, dk_sh, dk_sl;
+  long long dv_sb, dv_sh, dv_sl;
+  float scale;
+  int causal;
+  int vec;  // 1: D % 4 == 0 and every row of q, k, v, do 16-byte aligned
+};
+
+// one warp per row of (B, H, Lq), eight rows a block
+__global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
+    const BwdParams p) {
+  const long long row = (long long)blockIdx.x * NWARP + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)p.B * p.H * p.Lq) return;
+  const int i = (int)(row % p.Lq);
+  const int bh = (int)(row / p.Lq);
+  const int b = bh / p.H, h = bh % p.H;
+  const float* o = p.out + b * p.o_sb + h * p.o_sh + i * p.o_sl;
+  const float* g = p.dout + b * p.do_sb + h * p.do_sh + i * p.do_sl;
+  float acc = 0.f;
+  for (int d = lane; d < p.D; d += 32) acc = fmaf(o[d], g[d], acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.dd[row] = acc - (p.dlse ? p.dlse[row] : 0.f);
+}
+
+// a, the A fragment of rows (r, r + 8) x columns (c, c + 4) of a
+// row-major tile in shared memory, split into big and small
+__device__ __forceinline__ void a_frag(const float* x, uint32_t (&ab)[4],
+                                       uint32_t (&as)[4]) {
+  split(x[0], ab[0], as[0]);
+  split(x[8 * LD], ab[1], as[1]);
+  split(x[4], ab[2], as[2]);
+  split(x[8 * LD + 4], ab[3], as[3]);
+}
+
+// the A fragment of a 16 x 8 block held as a C fragment: A column t takes
+// C column 2t and A column t + 4 C column 2t + 1 (the renumbering of the
+// forward's P V)
+__device__ __forceinline__ void a_from_c(const float (&c)[4],
+                                         uint32_t (&ab)[4],
+                                         uint32_t (&as)[4]) {
+  split(c[0], ab[0], as[0]);
+  split(c[2], ab[1], as[1]);
+  split(c[1], ab[2], as[2]);
+  split(c[3], ab[3], as[3]);
+}
+
+// acc[dn] += A (16 x 8, renumbered as in a_from_c) X[rows 8n + 2t, + 1]
+// for every 8-column step dn of D: X is a row-major tile in shared memory
+// whose rows match A's renumbered columns
+template <int NDT>
+__device__ __forceinline__ void mma_rows(float (&acc)[NDT][4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         const float* x) {
+#pragma unroll
+  for (int dn = 0; dn < NDT; ++dn) {
+    uint32_t bb0, bs0, bb1, bs1;
+    split(x[dn * 8], bb0, bs0);
+    split(x[LD + dn * 8], bb1, bs1);
+    mma3(acc[dn], ab, as, bb0, bb1, bs0, bs1);
+  }
+}
+
+// c[n] += A Y^T over the head dim: A rows from `a` (a row-major tile in
+// shared memory, this warp's 16 rows), Y's rows n*8 .. n*8 + 7 from `y`
+template <int NDT, int NN>
+__device__ __forceinline__ void mma_abt(float (&c)[NN][4], const float* a,
+                                        const float* y, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < NDT; ++kk) {
+    uint32_t ab[4], as[4];
+    a_frag(a + g * LD + kk * 8 + t, ab, as);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const float* yr = y + (n * 8 + g) * LD + kk * 8 + t;
+      uint32_t bb0, bs0, bb1, bs1;
+      split(yr[0], bb0, bs0);
+      split(yr[4], bb1, bs1);
+      mma3(c[n], ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// dst[i] = src[row0 + i] for i < N, 0 past nrows
+template <int N>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int nrows) {
+  for (int i = threadIdx.x; i < N; i += NT) {
+    const bool ok = row0 + i < nrows;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+template <int NDT>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_kernel(
+    const BwdParams p) {
+  constexpr int DK = NDT * 8;
+  constexpr int QN = BQS / 8;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [BKV][LD]
+  float* vs = ks + TILE_FLOATS;                  // [BKV][LD]
+  float* st = vs + TILE_FLOATS;                  // [2][Q, dO][BQS][LD]
+  float* rs = st + 4 * STAGE_FLOATS;             // [2][lse, Dd][BQS]
+
+  const int BH = p.B * p.H;
+  const int bh = blockIdx.x % BH;
+  const int k0 = (blockIdx.x / BH) * BKV;  // causal: heaviest tiles first
+  const int b = bh / p.H, h = bh % p.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  const int kw = k0 + r0;  // the warp's first key
+  const int D = p.D;
+
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* db = p.dout + b * p.do_sb + h * p.do_sh;
+  const float* lb = p.lse + (long long)bh * p.Lq;
+  const float* ddb = p.dd + (long long)bh * p.Lq;
+
+  const int nqt = (p.Lq + BQS - 1) / BQS;
+  // causal: the first query tile that holds a row qi >= k0
+  const int qt0 = p.causal ? min(k0 / BQS, nqt) : 0;
+
+  load_tile<BKV, DK>(ks, kb, p.k_sl, k0, p.Lk, D, p.vec);
+  load_tile<BKV, DK>(vs, vb, p.v_sl, k0, p.Lk, D, p.vec);
+  if (qt0 < nqt) {
+    load_tile<BQS, DK>(st, qb, p.q_sl, qt0 * BQS, p.Lq, D, p.vec);
+    load_tile<BQS, DK>(st + STAGE_FLOATS, db, p.do_sl, qt0 * BQS, p.Lq, D,
+                       p.vec);
+    load_vec<BQS>(rs, lb, qt0 * BQS, p.Lq);
+    load_vec<BQS>(rs + BQS, ddb, qt0 * BQS, p.Lq);
+  }
+  cp_async_commit();
+
+  float dk[NDT][4], dv[NDT][4];
+#pragma unroll
+  for (int dn = 0; dn < NDT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int it = qt - qt0;
+    const int q0 = qt * BQS;
+    if (qt + 1 < nqt) {
+      const int nx = (it + 1) & 1;
+      float* sq = st + nx * 2 * STAGE_FLOATS;
+      load_tile<BQS, DK>(sq, qb, p.q_sl, q0 + BQS, p.Lq, D, p.vec);
+      load_tile<BQS, DK>(sq + STAGE_FLOATS, db, p.do_sl, q0 + BQS, p.Lq, D,
+                         p.vec);
+      load_vec<BQS>(rs + nx * 2 * BQS, lb, q0 + BQS, p.Lq);
+      load_vec<BQS>(rs + nx * 2 * BQS + BQS, ddb, q0 + BQS, p.Lq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage it has landed for every thread
+
+    const float* sq = st + (it & 1) * 2 * STAGE_FLOATS;
+    const float* sdo = sq + STAGE_FLOATS;
+    const float* sl = rs + (it & 1) * 2 * BQS;
+    const float* sd = sl + BQS;
+    if (!(p.causal && q0 + BQS - 1 < kw)) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries each;
+      // s[n][e] is key kw + g + 8 * (e >> 1), query q0 + 8n + 2t + (e & 1)
+      float s[QN][4], dp[QN][4];
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      mma_abt<NDT, QN>(s, ks + r0 * LD, sq, g, t);
+      mma_abt<NDT, QN>(dp, vs + r0 * LD, sdo, g, t);
+      const bool masked = q0 + BQS > p.Lq || (p.causal && q0 < kw + 15);
+#pragma unroll
+      for (int n = 0; n < QN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = n * 8 + 2 * t + (e & 1);
+          float pv = exp2f(fmaf(s[n][e], sl2, -sl[qc] * LOG2E));
+          if (masked) {
+            const int qi = q0 + qc, key = kw + g + 8 * (e >> 1);
+            if (qi >= p.Lq || (p.causal && qi < key)) pv = 0.f;
+          }
+          dp[n][e] = pv * (dp[n][e] - sd[qc]) * p.scale;  // dS^T
+          s[n][e] = pv;                                   // P^T
+        }
+      // dV += P^T dO and dK += dS^T Q, k-step n over queries 8n .. 8n + 7
+#pragma unroll
+      for (int n = 0; n < QN; ++n) {
+        uint32_t ab[4], as[4];
+        a_from_c(s[n], ab, as);
+        mma_rows<NDT>(dv, ab, as, sdo + (n * 8 + 2 * t) * LD + g);
+        a_from_c(dp[n], ab, as);
+        mma_rows<NDT>(dk, ab, as, sq + (n * 8 + 2 * t) * LD + g);
+      }
+    }
+    __syncthreads();  // every reader is done before the stage is refilled
+  }
+  cp_async_wait<0>();
+
+  float* dkb = p.dk + b * p.dk_sb + h * p.dk_sh;
+  float* dvb = p.dv + b * p.dv_sb + h * p.dv_sh;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = kw + g + 8 * rr;
+    if (key >= p.Lk) continue;
+    float* kr = dkb + key * p.dk_sl;
+    float* vr = dvb + key * p.dv_sl;
+#pragma unroll
+    for (int dn = 0; dn < NDT; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (col < D) {
+        kr[col] = dk[dn][2 * rr];
+        vr[col] = dv[dn][2 * rr];
+      }
+      if (col + 1 < D) {
+        kr[col + 1] = dk[dn][2 * rr + 1];
+        vr[col + 1] = dv[dn][2 * rr + 1];
+      }
+    }
+  }
+}
+
+template <int NDT>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(
+    const BwdParams p) {
+  constexpr int DK = NDT * 8;
+  constexpr int KN = BKS / 8;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
+  float* dos = qs + TILE_FLOATS;                 // [BQ][LD]
+  float* kvs = dos + TILE_FLOATS;                // [2][K, V][BKS][LD]
+
+  const int BH = p.B * p.H;
+  const int nq = (p.Lq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (nq - 1 - blockIdx.x / BH) * BQ;  // heaviest tiles first
+  const int b = bh / p.H, h = bh % p.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  const int D = p.D;
+
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* db = p.dout + b * p.do_sb + h * p.do_sh;
+
+  int n_kt = (p.Lk + BKS - 1) / BKS;
+  if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.Lq) - 1) / BKS + 1);
+
+  load_tile<BQ, DK>(qs, qb, p.q_sl, q0, p.Lq, D, p.vec);
+  load_tile<BQ, DK>(dos, db, p.do_sl, q0, p.Lq, D, p.vec);
+  if (n_kt > 0) {
+    load_tile<BKS, DK>(kvs, kb, p.k_sl, 0, p.Lk, D, p.vec);
+    load_tile<BKS, DK>(kvs + STAGE_FLOATS, vb, p.v_sl, 0, p.Lk, D, p.vec);
+  }
+  cp_async_commit();
+
+  // rows qa and qa + 8: lse (times log2 e) and Dd
+  const int qa = q0 + r0 + g;
+  float ml[2], dr[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = qa + 8 * rr;
+    const bool ok = row < p.Lq;
+    ml[rr] = ok ? p.lse[(long long)bh * p.Lq + row] * LOG2E : 0.f;
+    dr[rr] = ok ? p.dd[(long long)bh * p.Lq + row] : 0.f;
+  }
+  const float sl2 = p.scale * LOG2E;
+  float dq[NDT][4];
+#pragma unroll
+  for (int dn = 0; dn < NDT; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[dn][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BKS;
+    if (it + 1 < n_kt) {
+      float* nxt = kvs + ((it + 1) & 1) * 2 * STAGE_FLOATS;
+      load_tile<BKS, DK>(nxt, kb, p.k_sl, k0 + BKS, p.Lk, D, p.vec);
+      load_tile<BKS, DK>(nxt + STAGE_FLOATS, vb, p.v_sl, k0 + BKS, p.Lk, D,
+                         p.vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const float* ks = kvs + (it & 1) * 2 * STAGE_FLOATS;
+    const float* vs = ks + STAGE_FLOATS;
+    if (!(p.causal && k0 > q0 + r0 + 15)) {
+      // S = Q K^T and dP = dO V^T: 16 rows x 32 keys; s[n][e] is row
+      // qa + 8 * (e >> 1), key k0 + 8n + 2t + (e & 1)
+      float s[KN][4], dp[KN][4];
+#pragma unroll
+      for (int n = 0; n < KN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      mma_abt<NDT, KN>(s, qs + r0 * LD, ks, g, t);
+      mma_abt<NDT, KN>(dp, dos + r0 * LD, vs, g, t);
+      const bool masked =
+          k0 + BKS > p.Lk || (p.causal && k0 + BKS - 1 > q0 + r0);
+#pragma unroll
+      for (int n = 0; n < KN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = exp2f(fmaf(s[n][e], sl2, -ml[e >> 1]));
+          if (masked) {
+            const int key = k0 + n * 8 + 2 * t + (e & 1);
+            const int row = qa + 8 * (e >> 1);
+            if (key >= p.Lk || (p.causal && row < key)) pv = 0.f;
+          }
+          s[n][e] = pv * (dp[n][e] - dr[e >> 1]) * p.scale;  // dS
+        }
+      // dQ += dS K, k-step n over keys k0 + 8n .. + 7
+#pragma unroll
+      for (int n = 0; n < KN; ++n) {
+        uint32_t ab[4], as[4];
+        a_from_c(s[n], ab, as);
+        mma_rows<NDT>(dq, ab, as, ks + (n * 8 + 2 * t) * LD + g);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  float* dqb = p.dq + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = qa + 8 * rr;
+    if (row >= p.Lq) continue;
+    float* qr = dqb + row * p.dq_sl;
+#pragma unroll
+    for (int dn = 0; dn < NDT; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (col < D) qr[col] = dq[dn][2 * rr];
+      if (col + 1 < D) qr[col + 1] = dq[dn][2 * rr + 1];
+    }
+  }
+}
+
+template <int NDT>
+int launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.H * p.Lq;
+  const long long bh = (long long)p.B * p.H;
+  const long long dq_blocks = bh * ((p.Lq + BQ - 1) / BQ);
+  const long long dkv_blocks = bh * ((p.Lk + BKV - 1) / BKV);
+  const long long row_blocks = (rows + NWARP - 1) / NWARP;
+  if (rows <= 0) return 0;
+  if (row_blocks > 0x7fffffffLL || dq_blocks > 0x7fffffffLL ||
+      dkv_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<NDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)DQ_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<NDT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DKV_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_delta_kernel<<<(unsigned)row_blocks, NT, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<NDT>
+      <<<(unsigned)dq_blocks, NT, DQ_SMEM_BYTES, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dkv_blocks > 0)
+    flash_bwd_dkdv_kernel<NDT>
+        <<<(unsigned)dkv_blocks, NT, DKV_SMEM_BYTES, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  Pointers are device pointers;
@@ -381,4 +826,54 @@ extern "C" int mxtt_flash_attention_fwd(
   if (D <= 32) return launch<4>(p, st);
   if (D <= 64) return launch<8>(p, st);
   return launch<16>(p, st);
+}
+
+
+// Plain C entry point of K3b, loaded with ctypes.  Pointers are device
+// pointers (dlse may be null); strides are in elements; the last dimension
+// of q, k, v, out, do, dq, dk and dv is contiguous; lse, dlse and dd are
+// contiguous (B, H, Lq) f32 arrays, dd a scratch the call fills.  Launches
+// three kernels on `stream` and returns the first error of
+// cudaGetLastError() (0 when every launch was taken).
+extern "C" int mxtt_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, const void* dlse, void* dq, void* dk,
+    void* dv, void* dd, int B, int H, int Lq, int Lk, int D,
+    long long q_sb, long long q_sh, long long q_sl,
+    long long k_sb, long long k_sh, long long k_sl,
+    long long v_sb, long long v_sh, long long v_sl,
+    long long o_sb, long long o_sh, long long o_sl,
+    long long do_sb, long long do_sh, long long do_sl,
+    long long dq_sb, long long dq_sh, long long dq_sl,
+    long long dk_sb, long long dk_sh, long long dk_sl,
+    long long dv_sb, long long dv_sh, long long dv_sl,
+    float scale, int causal, int vec, void* stream) {
+  BwdParams p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.out = static_cast<const float*>(out);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.dlse = static_cast<const float*>(dlse);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.dd = static_cast<float*>(dd);
+  p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.D = D;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sl = v_sl;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sl = o_sl;
+  p.do_sb = do_sb; p.do_sh = do_sh; p.do_sl = do_sl;
+  p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_sl = dq_sl;
+  p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_sl = dk_sl;
+  p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_sl = dv_sl;
+  p.scale = scale;
+  p.causal = causal;
+  p.vec = vec;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return launch_bwd<4>(p, st);
+  if (D <= 64) return launch_bwd<8>(p, st);
+  return launch_bwd<16>(p, st);
 }

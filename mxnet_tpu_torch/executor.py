@@ -45,11 +45,6 @@ from .optimizer import hyper_tensor, lr_wd_groups, sgd_step_math
 
 __all__ = ["Executor"]
 
-#: ops whose backward is not ported yet: a training bind through them
-#: raises instead of handing back gradients that stop there
-_NO_BACKWARD = ("_contrib_FlashAttention", "_contrib_MultiHeadAttention")
-
-
 def _bn_relu_peephole(symbol, nodes):
     """BatchNorm nodes whose SOLE consumer is a relu ``Activation`` fuse
     into one kernel launch.  Returns ({id(bn)}, {id(act): bn_node})."""
@@ -280,13 +275,6 @@ class Executor:
         arg_names = symbol.list_arguments()
         aux_names = symbol.list_auxiliary_states()
         req = _grad_req_map(grad_req, arg_names)
-        if any(r != "null" for r in req.values()):
-            for node in symbol._nodes():
-                if not node.is_variable and node.op.name in _NO_BACKWARD:
-                    raise MXNetError(
-                        "simple_bind(grad_req=%r): training through %s "
-                        "(node %s) is not ported yet: its kernel has no "
-                        "backward" % (grad_req, node.op.name, node.name))
         type_dict = dict(type_dict or {})
         for node in symbol._nodes():
             if node.is_variable and "__dtype__" in node.misc_attr:

@@ -1,9 +1,9 @@
 """Model definitions built through ``mxnet_tpu_torch.symbol``."""
 
 from . import lstm_lm, resnet
-from .long_context_lm import build_lm
+from .long_context_lm import build_lm, copy_task
 
-__all__ = ["build_lm", "get_symbol", "lstm_lm", "resnet"]
+__all__ = ["build_lm", "copy_task", "get_symbol", "lstm_lm", "resnet"]
 
 _BUILDERS = {"resnet": resnet.get_symbol}
 

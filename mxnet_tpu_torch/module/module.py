@@ -16,7 +16,9 @@ ported yet.
 Checkpoints: :meth:`save_checkpoint`, :meth:`Module.load` and the
 optimizer-state files (the JAX package's pickle, read from either
 package and moved onto the module's device); ``fit``'s mid-epoch
-snapshots take :meth:`_capture_state_arrays`.
+snapshots take :meth:`_capture_state_arrays`.  A state may be a tuple of
+arrays (Adam's ``(mean, var)``): every array of it is copied, moved and
+restored like a single one.
 
 The sync-free step (the JAX package's ``MXNET_FUSE_TRAIN_STEP=1``): when
 :meth:`_full_step_eligible`, ``forward_backward`` only loads the batch
@@ -485,16 +487,19 @@ class Module(BaseModule):
         aux_names = list(ex.aux_dict)
         states = self._updater.states if self.optimizer_initialized \
             and self._updater is not None else None
-        idx = [i for i, st in (states or {}).items()
-               if isinstance(st, NDArray)]
+        # an index's state may be a tuple of arrays (Adam's (mean, var))
+        flat_states = [a for st in (states or {}).values()
+                       for a in opt.state_arrays(st)]
         copies = _flat_copy([ex.arg_dict[n] for n in self._param_names]
                             + [ex.aux_dict[n] for n in aux_names]
-                            + [states[i] for i in idx])
+                            + flat_states)
         arg = dict(zip(self._param_names, copies))
         copies = copies[len(arg):]
         aux = dict(zip(aux_names, copies))
-        opt_states = None if states is None else \
-            {**states, **dict(zip(idx, copies[len(aux):]))}
+        state_copies = iter(copies[len(aux):])
+        opt_states = None if states is None else {
+            i: opt.map_state(lambda _a: next(state_copies), st)
+            for i, st in states.items()}
         opt_counts = None
         if self._optimizer is not None:
             opt_counts = {
@@ -510,7 +515,7 @@ class Module(BaseModule):
         a state left on the CPU as a new tensor of another device."""
         dev = self._context[0].torch_device()
         self._updater.states = {
-            i: NDArray(s._t.to(dev)) if isinstance(s, NDArray) else s
+            i: opt.map_state(lambda a: NDArray(a._t.to(dev)), s)
             for i, s in self._updater.states.items()}
 
     def _restore_opt_snapshot(self, states_bytes, opt_counts):

@@ -1,7 +1,7 @@
 """Optimizers (``mx.optimizer``), counterpart of ``mxnet_tpu/optimizer.py``:
 the :class:`Optimizer` base with lr/wd multipliers and update-count driven
-scheduling, :class:`SGD`, :func:`create`, :class:`Updater` and
-:func:`get_updater`.
+scheduling, :class:`SGD`, :class:`Adam`, :func:`create`, :class:`Updater`
+and :func:`get_updater`.
 
 The SGD step is the JAX package's ``sgd_step_math``
 (``mxnet_tpu/executor.py:414-429``), here over lists of tensors with
@@ -13,12 +13,24 @@ differ once the learning rate changes.  lr and wd are read from a tensor
 on the parameters' device (:func:`hyper_tensor`), in both the eager
 update and the captured fused step: a Python float would be baked into a
 captured CUDA graph.  ``Updater.get_states``/``set_states`` pickle the
-states in the JAX package's format, and read its files.
+states in the JAX package's format (its NDArray class name included), so
+each package reads the other's files.
+
+:class:`Adam` is the JAX package's (``mxnet_tpu/optimizer.py:242-272``)
+with the arithmetic of its ``adam_update`` op
+(``mxnet_tpu/ops/optimizer_op.py:54-62``), in place, one parameter at a
+time (the Module's per-index :class:`Updater` path): rescale, clip, then
+``+ wd * w``; ``lr * sqrt(1 - beta2^t) / (1 - beta1^t)``; epsilon
+outside the square root.  Its state is the tuple ``(mean, var)``;
+:func:`state_arrays` and :func:`map_state` walk such states (a state is
+None, an NDArray, or a tuple or list of states), as the JAX package's
+``_spec`` does.
 """
 
 from __future__ import annotations
 
 import io
+import math
 import pickle
 
 import torch
@@ -26,9 +38,10 @@ import torch
 from .base import MXNetError, Registry
 from .ndarray import NDArray, zeros
 
-__all__ = ["Optimizer", "SGD", "create", "register", "Updater",
-           "get_updater", "sgd_step_math", "lr_wd_groups", "hyper_tensor",
-           "load_states"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "Updater",
+           "get_updater", "sgd_step_math", "lr_wd_groups",
+           "hyper_tensor", "dumps_states", "load_states", "state_arrays",
+           "map_state"]
 
 registry = Registry("optimizer")
 register = registry.register
@@ -186,6 +199,59 @@ class SGD(Optimizer):
                 self.momentum, self.rescale_grad, self.clip_gradient)
 
 
+@register
+class Adam(Optimizer):
+    """Adam with the bias-corrected effective lr of the reference."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context, dtype=weight.dtype),
+                zeros(weight.shape, weight.context, dtype=weight.dtype))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        mean, var = (s._t for s in state)
+        b1, b2 = self.beta1, self.beta2
+        with torch.no_grad():
+            # adam_update's arithmetic, in its order
+            g = grad._t * self.rescale_grad
+            if self.clip_gradient is not None and self.clip_gradient > 0:
+                g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+            g = g + wd * weight._t
+            mean.copy_(b1 * mean + (1 - b1) * g)
+            var.copy_(b2 * var + (1 - b2) * torch.square(g))
+            weight._t.sub_(lr * mean / (torch.sqrt(var) + self.epsilon))
+
+
+def state_arrays(state):
+    """The NDArrays of an optimizer state (None, an NDArray, or a tuple or
+    list of states), in order."""
+    if isinstance(state, NDArray):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [a for s in state for a in state_arrays(s)]
+    return []
+
+
+def map_state(fn, state):
+    """``state`` with ``fn`` applied to each of its NDArrays, tuples and
+    lists kept as they are."""
+    if isinstance(state, NDArray):
+        return fn(state)
+    if isinstance(state, (tuple, list)):
+        return type(state)(map_state(fn, s) for s in state)
+    return state
+
+
 def create(name, **kwargs):
     if isinstance(name, Optimizer):
         return name
@@ -213,10 +279,35 @@ class _StatesUnpickler(pickle.Unpickler):
             "optimizer states: class %s.%s is not allowed" % (module, name))
 
 
+class _StatesPickler(pickle._Pickler):
+    """Pickles optimizer states with this package's NDArray written under
+    the JAX package's class name, ``mxnet_tpu.ndarray.NDArray`` (the same
+    state keys): the JAX package's plain ``pickle.loads`` then reads the
+    file, and :class:`_StatesUnpickler` maps the name back.  The name is
+    written as a ``GLOBAL`` opcode, so nothing of the JAX package is
+    imported here."""
+
+    def save_global(self, obj, name=None):
+        if obj is NDArray:
+            self.write(pickle.GLOBAL + b"mxnet_tpu.ndarray\nNDArray\n")
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def dumps_states(states):
+    """The bytes of an optimizer-state dict ``{index: state}``, readable by
+    either package."""
+    buf = io.BytesIO()
+    _StatesPickler(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(states)
+    return buf.getvalue()
+
+
 def load_states(blob):
-    """``{index: NDArray or None}`` from the bytes of
-    :meth:`Updater.get_states` (of either package), arrays on the CPU or
-    on the device they were pickled from."""
+    """``{index: state}`` (None, an NDArray, or a tuple of them: Adam's
+    ``(mean, var)``) from the bytes of :meth:`Updater.get_states` (of
+    either package), arrays on the CPU or on the device they were pickled
+    from."""
     try:
         return _StatesUnpickler(io.BytesIO(blob)).load()
     except (pickle.UnpicklingError, EOFError, AttributeError,
@@ -242,7 +333,7 @@ class Updater:
         self.states = load_states(states)
 
     def get_states(self):
-        return pickle.dumps(self.states)
+        return dumps_states(self.states)
 
 
 def get_updater(optimizer):

@@ -142,16 +142,109 @@ def test_served_lm_on_card_launches_once_per_dispatch(cuda_device, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
+def _k3b_inputs(b, h, lq, lk, d, seed, device, offset=0):
+    """q, k, v as (B, L, H, D) -> (B, H, L, D) views (``offset`` floats
+    into each row: 4-byte copies when not 16-byte aligned), the forward's
+    out and lse from K3, do as the strided view MultiHeadAttention's
+    backward hands over, and a dlse."""
+    rs = np.random.RandomState(seed)
+
+    def view(n):
+        t = rs.normal(0, 1, (b, n, h, d + offset)).astype(np.float32)
+        return torch.from_numpy(t).to(device)[..., offset:].transpose(1, 2)
+
+    q, k, v = view(lq), view(lk), view(lk)
+    do = view(lq)
+    dlse = torch.from_numpy(rs.normal(0, 1, (b, h, lq)).astype(np.float32)) \
+        .to(device)
+    return q, k, v, do, dlse
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_inputs_that_need_a_gradient(cuda_device):
-    """K3 has no backward yet: under autograd it raises instead of
-    returning an output with no gradient path."""
-    q, k, v = _qkv(1, 2, 16, 16, 32, 1, cuda_device)
-    q.requires_grad_(True)
-    with pytest.raises(mx.MXNetError, match="backward not ported"):
-        tatt.flash_attention(q, k, v)
-    with torch.no_grad():
-        tatt.flash_attention(q, k, v)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("lq,lk,d,offset", [
+    (256, 256, 128, 0), (200, 200, 64, 0), (100, 70, 16, 0),
+    # around K3b's tiles (128 keys a dK/dV CTA, 32 rows a stage; 128 query
+    # rows a dQ CTA, 32 keys a stage), Lq != Lk both ways, a head dim off
+    # the 4-wide copies (D = 30) and rows one float off 16-byte alignment
+    (127, 129, 128, 0), (129, 33, 64, 0), (31, 257, 16, 0),
+    (150, 150, 30, 0), (150, 97, 64, 1), (1, 1, 128, 0)])
+def test_k3b_matches_plain(cuda_device, causal, with_dlse, lq, lk, d,
+                           offset):
+    """K3b against its plain version on the same inputs, each of dq, dk,
+    dv within ``1e-4`` of its largest magnitude (3xTF32 against f32 sums
+    in another order), on strided head views; the gradients take the
+    strides of q, k and v."""
+    q, k, v, do, dlse = _k3b_inputs(2, 3, lq, lk, d, lq + lk + d,
+                                    cuda_device, offset)
+    scale = 1 / np.sqrt(d)
+    out, lse = tatt.flash_attention_cuda(q, k, v, causal, scale)
+    dlse = dlse if with_dlse else None
+    before = tatt.flash_attention_bwd_cuda.launches
+    got = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse,
+                                        causal, scale)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_bwd_cuda.launches == before + 1
+    want = tatt.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
+                                          causal, scale)
+    for name, g, w, src in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        if offset == 0:  # a dense view: empty_like keeps its strides
+            assert g.stride() == src.stride(), name
+        _assert_close_scaled(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3b_repeats_bit_for_bit(cuda_device, causal):
+    """No atomics: two launches on the same inputs give the same bits,
+    over several waves of CTAs (3 x 20 heads x 3 tiles)."""
+    q, k, v, do, dlse = _k3b_inputs(3, 20, 300, 300, 64, 4, cuda_device)
+    out, lse = tatt.flash_attention_cuda(q, k, v, causal, 0.125)
+    one = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal,
+                                        0.125)
+    two = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal,
+                                        0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels_matches_plain(cuda_device):
+    """``flash_attention_with_lse`` under autograd on the card: K3 forward
+    and K3b backward, once each, against the plain pair on the same
+    tensors, with cotangents for both out and lse."""
+    q, k, v, do, dlse = _k3b_inputs(2, 4, 96, 96, 32, 8, cuda_device)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    f0 = tatt.flash_attention_cuda.launches
+    b0 = tatt.flash_attention_bwd_cuda.launches
+    out, lse = tatt.flash_attention_with_lse(*leaves, causal=True)
+    got = torch.autograd.grad((out, lse), leaves, (do, dlse))
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_cuda.launches == f0 + 1
+    assert tatt.flash_attention_bwd_cuda.launches == b0 + 1
+    pout, plse = tatt.flash_attention_plain(q, k, v, True, 32 ** -0.5)
+    want = tatt.flash_attention_bwd_plain(q, k, v, pout, plse, do, dlse,
+                                          True, 32 ** -0.5)
+    for g, w in zip(got, want):
+        _assert_close_scaled(g, w)
+
+
+@pytest.mark.cuda
+def test_k3b_wrapper_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 1, 8, 64), device=cuda_device)
+    lse = torch.zeros((1, 1, 8), device=cuda_device)
+    with pytest.raises(mx.MXNetError, match="do must be"):
+        tatt.flash_attention_bwd_cuda(q, q, q, q, lse, q[:, :, :4], None,
+                                      True, 0.1)
+    with pytest.raises(mx.MXNetError, match="lse must be"):
+        tatt.flash_attention_bwd_cuda(q, q, q, q, lse.double(), q, None,
+                                      True, 0.1)
+    with pytest.raises(mx.MXNetError, match="head_dim"):
+        big = torch.zeros((1, 1, 8, 160), device=cuda_device)
+        tatt.flash_attention_bwd_cuda(big, big, big, big, lse, big, None,
+                                      True, 0.1)
 
 
 def _assert_close_scaled(got, want, tol=1e-4):
@@ -1006,3 +1099,92 @@ def test_device_metric_state_is_one_sync(cuda_device):
         assert got["sum_metric"] == pytest.approx(exp["sum_metric"],
                                                   rel=1e-5)
     json.dumps(state)
+
+
+# -- LM training through K3 and K3b, with Adam --------------------------------
+def _lm_iter(n=16, seq=16, vocab=50, batch=4, seed=0):
+    from mxnet_tpu_torch.models import copy_task
+
+    x, y = copy_task(n, seq, vocab, np.random.RandomState(seed))
+    return mx.io.NDArrayIter(x, y, batch_size=batch,
+                             label_name="softmax_label")
+
+
+def _refuse_plain_attention(monkeypatch):
+    """The plain attention versions raise on CUDA tensors: the card's path
+    must launch K3 and K3b."""
+    for name in ("flash_attention_plain", "flash_attention_bwd_plain"):
+        plain = getattr(tatt, name)
+
+        def refused(q, *args, _name=name, _plain=plain, **kw):
+            if q.is_cuda:
+                raise RuntimeError("%s called on the card" % _name)
+            return _plain(q, *args, **kw)
+
+        monkeypatch.setattr(tatt, name, refused)
+
+
+@pytest.mark.cuda
+def test_lm_fit_launches_k3_and_k3b_once_a_step(cuda_device, monkeypatch):
+    """A tiny ``build_lm`` through ``Module.fit`` with Adam on the card:
+    one K3 and one K3b launch per training step, one K3 per ``score``
+    batch, no plain attention; finite parameters and perplexities."""
+    from mxnet_tpu_torch.models import build_lm
+
+    _refuse_plain_attention(monkeypatch)
+    it = _lm_iter()
+    mod = mx.mod.Module(build_lm(50, 32, 2, 16))
+    mx.init.seed(0)
+    tatt.flash_attention_cuda.launches = 0
+    tatt.flash_attention_bwd_cuda.launches = 0
+    mod.fit(it, num_epoch=2, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-2},
+            eval_metric=mx.metric.Perplexity(ignore_label=None))
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_cuda.launches == 8
+    assert tatt.flash_attention_bwd_cuda.launches == 8
+    (_, ppl), = mod.score(it, mx.metric.Perplexity(ignore_label=None))
+    assert tatt.flash_attention_cuda.launches == 12
+    assert tatt.flash_attention_bwd_cuda.launches == 8
+    assert np.isfinite(ppl)
+    for i, (mean, var) in mod._updater.states.items():
+        assert mean._t.device == cuda_device and var._t.device == cuda_device
+    arg, _ = mod.get_params()
+    assert all(torch.isfinite(a._t).all() for a in arg.values())
+
+
+@pytest.mark.cuda
+def test_adam_checkpoint_reloads_onto_the_card(cuda_device, tmp_path):
+    """An Adam checkpoint (tuple states) reloaded with ``Module.load``:
+    the moments land on the card, equal to the saved ones, and the next
+    step runs there, through K3 and K3b."""
+    from mxnet_tpu_torch.models import build_lm
+
+    it = _lm_iter()
+    mod = mx.mod.Module(build_lm(50, 32, 2, 16))
+    mx.init.seed(1)
+    mod.fit(it, num_epoch=1, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-2})
+    prefix = str(tmp_path / "lm")
+    mod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+    saved = {i: (m.asnumpy(), v.asnumpy())
+             for i, (m, v) in mod._updater.states.items()}
+    other = mx.mod.Module.load(prefix, 1, load_optimizer_states=True)
+    other.bind(it.provide_data, it.provide_label)
+    other.init_optimizer(optimizer="adam",
+                         optimizer_params={"learning_rate": 1e-2})
+    assert sorted(other._updater.states) == sorted(saved)
+    for i, (mean, var) in other._updater.states.items():
+        assert mean._t.device == cuda_device and var._t.device == cuda_device
+        np.testing.assert_array_equal(mean.asnumpy(), saved[i][0])
+        np.testing.assert_array_equal(var.asnumpy(), saved[i][1])
+    it.reset()
+    batch = next(iter(it))
+    k3b = tatt.flash_attention_bwd_cuda.launches
+    other.forward_backward(batch)
+    other.update()
+    torch.cuda.synchronize()
+    assert tatt.flash_attention_bwd_cuda.launches == k3b + 1
+    for i, (mean, var) in other._updater.states.items():
+        assert mean._t.device == cuda_device
+        assert not np.array_equal(var.asnumpy(), saved[i][1])

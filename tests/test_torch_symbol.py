@@ -79,5 +79,7 @@ def test_simple_bind_defaults_to_the_card_and_binds_cpu():
     ex = tnet.simple_bind(tmx.cpu(), data=(2, 16))
     assert ex.arg_dict["att_qkv_weight"].shape == (96, 32)
     assert ex.arg_dict["softmax_label"].shape == (32,)
-    with pytest.raises(tmx.MXNetError, match="training"):
-        tnet.simple_bind(tmx.cpu(), grad_req="write", data=(2, 16))
+    # a training bind allocates a gradient beside every argument
+    ex = tnet.simple_bind(tmx.cpu(), grad_req="write", data=(2, 16))
+    assert ex.grad_dict["att_qkv_weight"].shape == (96, 32)
+    assert sorted(ex.grad_dict) == sorted(tnet.list_arguments())
