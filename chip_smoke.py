@@ -25,7 +25,8 @@
    q, k, v, bit for bit across two launches; timed beside the plain
    version, the backward of ``F.scaled_dot_product_attention`` (a
    yardstick the port never calls) and the bound (five products, 10*D
-   operations per attended pair, at the 3xTF32 rate).
+   operations per attended pair, at the 3xTF32 rate); prints the
+   registers and spill bytes of K3b's kernels from nvcc's report.
 4. BatchNorm kernel phase: at every distinct BatchNorm input of the
    ResNet-50 b128 training step (shape, fix_gamma, fused ReLU), K1 and K2
    held against their plain versions (max error within ``1e-4`` of each
@@ -177,6 +178,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -304,6 +306,28 @@ def _attention_bwd_bound(b, h, lq, lk, d, causal, with_dlse):
     return t_bytes * 1e3, "bytes", flops
 
 
+def ptxas_report(kernels, lib):
+    """``{kernel: (registers, spill store bytes, spill load bytes)}`` of
+    kernel library ``lib``, from the ``-Xptxas -v`` lines of its build
+    log (``kernels``: the port's ``_kernels``; names as compiled,
+    mangled)."""
+    out, name, spills = {}, None, (0, 0)
+    for line in kernels.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + spills
+    return out
+
+
 def k3b_kernel_phase(att, dev, seed):
     """K3b against its plain version on the card (TF32 off for the plain
     version), each of dq, dk, dv within ``1e-4`` of its largest
@@ -313,6 +337,12 @@ def k3b_kernel_phase(att, dev, seed):
     a nonzero dlse.  Timed beside the plain version, the backward of
     ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
     and the bound."""
+    for name, (regs, st, ld) in sorted(ptxas_report(
+            att._kernels, "flash_attention").items()):
+        if "flash_bwd" in name:
+            print("kernel flash_attention_bwd (K3b) %s: %d registers, %d "
+                  "bytes spill stores, %d bytes spill loads"
+                  % (name, regs, st, ld), flush=True)
     rows = {}
     cases = [(b, SEQ, SEQ, causal, False) for b in (1, 4)
              for causal in (True, False)]

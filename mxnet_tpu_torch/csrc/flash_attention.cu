@@ -363,41 +363,88 @@ int launch(const Params& p, cudaStream_t stream) {
 //   ds  = p * (do.v - Dd) * scale
 //   dq  = ds K,   dk = ds^T Q,   dv = p^T dO
 //
-// What bounds it: five products of 2*L*L*D per (batch, head) where the
-// forward has two, so operations again (the bytes read and written are
-// about 8 * B*H*L*D floats, 0.08 ms at L = 2048, B = 4).  Each product is
-// 3xTF32 on mma.sync, as in the forward (one TF32 pass misses 1e-4).
+// What bounds it: five products of 2*D operations per attended (query,
+// key) pair, so operations (at L = 2048, D = 128 the bytes read and
+// written are about 8 * B*H*L*D floats, 0.08 ms at B = 4).  Each product
+// is 3xTF32, three TF32 tensor-core products summed in f32 (one TF32 pass
+// in any of the five misses 1e-4, tests/test_torch_attention.py), so the
+// bound is 3 * 10 * D * pairs / 495 TFLOP/s: 0.52 ms at B = 4, H = 8,
+// L = 2048, causal.  mma.sync reaches about 310 of those 495 TFLOP/s on
+// an H100 (chip_k3b_costs.py), 0.83 ms for the same work.
 //
-// Design: three launches, no atomics, so every output repeats bit for bit.
-//   * a row pass: one warp per query row writes Dd (fixed shuffle sums);
-//   * dK/dV: one CTA of 8 warps per (batch*head, 128-key tile); each warp
-//     owns 16 keys and holds their dK and dV (16 x D each) in registers;
-//     K and V stay in shared memory, and query tiles of 32 rows (Q, dO,
-//     lse, Dd) stream through a two-stage cp.async ring, from the first
-//     tile that can see the keys (causal) to the last.  S^T = K Q^T and
-//     dP^T = V dO^T come out as C fragments with keys as rows; P^T and
-//     dS^T feed dV += P^T dO and dK += dS^T Q as A fragments with the
-//     forward's key renumbering (here of queries);
-//   * dQ: one CTA of 8 warps per (batch*head, 128-row query tile), the
-//     forward's layout: Q and dO in shared memory, key tiles of 32 (K, V)
-//     through a two-stage ring up to the diagonal; S and dP in registers,
-//     dQ += dS K from the C fragments.
-// S and dP are computed twice (in both kernels): seven products where five
-// are needed, in exchange for no cross-CTA reduction.  dq, dk and dv are
-// written through their own strides.
-// Shared memory: dK/dV 2 x 128 x 132 (K, V) + 2 stages of 2 x 32 x 132
-// (Q, dO) + lse and Dd, 198.5 KB; dQ 2 x 128 x 132 + 2 stages of
-// 2 x 32 x 132, 198 KB; one CTA per SM.
+// Design: a row prologue, then one persistent kernel; five products; dq
+// summed in a fixed order without floating-point atomics.
+//   * prologue: one warp per query row writes Dd (fixed shuffle sums) and
+//     zeroes the call's work counter and dq flags;
+//   * work items are (batch*head, 64-key tile); one CTA per SM takes them
+//     from an integer counter in a fixed order, key tile 0 of every head
+//     first, then key tile 1, ...: under the causal mask the first keys
+//     see every query, so the heaviest items start first and the light
+//     ones fill the tail, whatever B*H (at B = 1 the time is the total
+//     work over the SMs, not key tile 0's);
+//   * an item keeps its K and V tile in shared memory and dK, dV (64 x D
+//     each) in registers and walks its query tiles of 64 rows from the
+//     last down to the first it can see (causal).  Per tile, 8 warps:
+//     S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries a warp, with P^T
+//     and dS^T computed in registers and stored to shared memory;
+//     dV += P^T dO (warps 0-3) and dK += dS^T Q (4-7), 32 keys x D/2 a
+//     warp; the dQ part dS K, 32 queries x D/4 a warp.  S and dP are
+//     computed once: five products, where separate dQ and dK/dV kernels
+//     would recompute them in both (seven);
+//   * dq is summed in global memory in ascending key-tile order: a tile's
+//     part is added (key tile 0 stores it) once the tile's integer flag
+//     says key tile j - 1 has added its own (thread 0 polls with an
+//     acquire load; the CTA's stores are released by a fence and an
+//     integer add).  The order depends on the shapes alone, so dq repeats
+//     bit for bit.  An item waits only on an item of a smaller index (the
+//     same head's previous key tile), which a running CTA holds, so the
+//     waits cannot deadlock whatever the grid; walking the query tiles
+//     from the last one puts the key tiles of a head on the same tile one
+//     after another, so the waits are short.  The dq values a part adds
+//     to arrive by cp.async under the dQ products.
+//
+// Products: all five on mma.sync.m16n8k8.tf32, not wgmma.  wgmma takes a
+// .tf32 B operand (and A, when in shared memory) K-major only, so
+// dV += P^T dO, dK += dS^T Q and dQ += dS K would need transposed copies of
+// dO, Q and K, and 3xTF32 needs a big and a small copy of every operand it
+// reads from shared memory; the register A operand (K or V for S^T and
+// dP^T, 64 x D big and small) does not fit beside dK and dV in 255
+// registers.  Shared memory at D = 128 (rows padded to 132 floats, P^T and
+// dS^T to 68, so every fragment load hits 32 banks):
+//
+//                        this design          wgmma, big + small copies
+//   K, V                  67,584              K, K^T, V         196,608
+//   Q (2 stages)          67,584              Q, Q^T (2 stages) 262,144
+//   dO (1; the next one   33,792              dO, dO^T          131,072
+//     comes after dV)
+//   lse, Dd (2 stages)     1,024
+//   dS^T                  17,408
+//   P^T, then old dq      33,792
+//   total                221,184 of 232,448   over 589,000
+//
+// Split: an operand is split into a TF32 big part and the rest as its
+// fragment is loaded, with two instructions: big = x with the low 13 bits
+// cleared (rounding toward zero), small = x - big, exact in f32 and read
+// by the tensor cores truncated to TF32.  Stored split copies would double
+// the shared memory every operand takes (no room above) and the bytes
+// every fragment load moves.
+//
+// Copies: cp.async (16 bytes where rows are 16-byte aligned and D % 4 == 0,
+// 4 bytes otherwise, zero-filled past L and D), issued a tile ahead for Q,
+// lse and Dd and after dV's products for dO.  TMA would take only the
+// aligned views; the copies are 64 KB a tile against about 15 us of
+// products.
 
-constexpr int BKV = 128;  // keys per dK/dV CTA (8 warps x 16)
-constexpr int BQS = 32;   // query rows per dK/dV stage
-constexpr int BKS = 32;   // keys per dQ stage
-constexpr int TILE_FLOATS = 128 * LD;  // a 128-row tile of K, V, Q or dO
-constexpr int STAGE_FLOATS = 32 * LD;  // a 32-row stage tile
-constexpr size_t DKV_SMEM_BYTES =
-    (size_t)(2 * TILE_FLOATS + 4 * STAGE_FLOATS + 4 * BQS) * sizeof(float);
-constexpr size_t DQ_SMEM_BYTES =
-    (size_t)(2 * TILE_FLOATS + 4 * STAGE_FLOATS) * sizeof(float);
+constexpr int BKV = 64;   // keys per work item
+constexpr int BQS = 64;   // query rows per step
+constexpr int LDT = BQS + 4;  // row stride of P^T and dS^T
+constexpr int TILE_KV = BKV * LD;
+constexpr int TILE_Q = BQS * LD;
+constexpr int TILE_P = BKV * LDT;
+constexpr size_t BWD_SMEM_BYTES =
+    (size_t)(2 * TILE_KV + 3 * TILE_Q + 4 * BQS + TILE_P +
+             (TILE_P > TILE_Q ? TILE_P : TILE_Q)) *
+    sizeof(float);
 
 struct BwdParams {
   const float* q;
@@ -411,6 +458,7 @@ struct BwdParams {
   float* dk;
   float* dv;
   float* dd;  // (B, H, Lq): sum_d do * out - dlse
+  int* work;  // [0] the item counter, then one dQ flag a (b*h, query tile)
   int B, H, Lq, Lk, D;
   long long q_sb, q_sh, q_sl;
   long long k_sb, k_sh, k_sl;
@@ -422,12 +470,88 @@ struct BwdParams {
   long long dv_sb, dv_sh, dv_sl;
   float scale;
   int causal;
-  int vec;  // 1: D % 4 == 0 and every row of q, k, v, do 16-byte aligned
+  int vec;  // 1: D % 4 == 0 and every row of q, k, v, do, dq 16-byte aligned
 };
 
-// one warp per row of (B, H, Lq), eight rows a block
-__global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
-    const BwdParams p) {
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release(int* p, int v) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
+      "r"(v)
+      : "memory");
+}
+
+// x = big + small with big = x rounded toward zero to TF32 (the low 13
+// bits cleared) and small = x - big, exact; the tensor cores read small's
+// 19 high bits
+__device__ __forceinline__ void split_rz(float x, uint32_t& big,
+                                         uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c[n] += A B_n in 3xTF32 for N independent accumulators, pass by pass
+// (the small products first), so consecutive mma.sync never wait on each
+// other's accumulator; b*[n] = {b0, b1} of B_n
+template <int N>
+__device__ __forceinline__ void mma3_passes(float (&c)[N][4],
+                                            const uint32_t (&ab)[4],
+                                            const uint32_t (&as)[4],
+                                            const uint32_t (&bb)[N][2],
+                                            const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ab, bs[n][0], bs[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], as, bb[n][0], bb[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], ab, bb[n][0], bb[n][1]);
+}
+
+// the A fragment of rows (r, r + 8) x columns (c, c + 4) of a row-major
+// tile with row stride ld (x points at (r, c)), split
+template <int ld>
+__device__ __forceinline__ void a_frag(const float* x, uint32_t (&ab)[4],
+                                       uint32_t (&as)[4]) {
+  split_rz(x[0], ab[0], as[0]);
+  split_rz(x[8 * ld], ab[1], as[1]);
+  split_rz(x[4], ab[2], as[2]);
+  split_rz(x[8 * ld + 4], ab[3], as[3]);
+}
+
+// the column where P^T and dS^T keep query ql: inside each group of 8,
+// query 2u + e sits at column u + 4e, so an A fragment read at columns
+// (t, t + 4) holds queries (2t, 2t + 1), the rows 2t and 2t + 1 a B
+// fragment of dO or Q reads (conflict-free at stride 132)
+__device__ __forceinline__ int pcol(int ql) {
+  return (ql & ~7) + ((ql & 7) >> 1) + 4 * (ql & 1);
+}
+
+// dst[i] = src[row0 + i] for i < N, 0 past nrows
+template <int N>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int nrows) {
+  for (int i = threadIdx.x; i < N; i += NT) {
+    const bool ok = row0 + i < nrows;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// one warp per row of (B, H, Lq), eight rows a block; the first threads
+// also zero the work counter and the dQ flags, and with Lk == 0 (no key
+// tile, no item) the rows write dq = 0
+__global__ void __launch_bounds__(NT) flash_bwd_prologue_kernel(
+    const BwdParams p, int nwork) {
+  const long long tid = (long long)blockIdx.x * NT + threadIdx.x;
+  if (tid < nwork) p.work[tid] = 0;
   const long long row = (long long)blockIdx.x * NWARP + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (long long)p.B * p.H * p.Lq) return;
@@ -442,355 +566,373 @@ __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) p.dd[row] = acc - (p.dlse ? p.dlse[row] : 0.f);
-}
-
-// a, the A fragment of rows (r, r + 8) x columns (c, c + 4) of a
-// row-major tile in shared memory, split into big and small
-__device__ __forceinline__ void a_frag(const float* x, uint32_t (&ab)[4],
-                                       uint32_t (&as)[4]) {
-  split(x[0], ab[0], as[0]);
-  split(x[8 * LD], ab[1], as[1]);
-  split(x[4], ab[2], as[2]);
-  split(x[8 * LD + 4], ab[3], as[3]);
-}
-
-// the A fragment of a 16 x 8 block held as a C fragment: A column t takes
-// C column 2t and A column t + 4 C column 2t + 1 (the renumbering of the
-// forward's P V)
-__device__ __forceinline__ void a_from_c(const float (&c)[4],
-                                         uint32_t (&ab)[4],
-                                         uint32_t (&as)[4]) {
-  split(c[0], ab[0], as[0]);
-  split(c[2], ab[1], as[1]);
-  split(c[1], ab[2], as[2]);
-  split(c[3], ab[3], as[3]);
-}
-
-// acc[dn] += A (16 x 8, renumbered as in a_from_c) X[rows 8n + 2t, + 1]
-// for every 8-column step dn of D: X is a row-major tile in shared memory
-// whose rows match A's renumbered columns
-template <int NDT>
-__device__ __forceinline__ void mma_rows(float (&acc)[NDT][4],
-                                         const uint32_t (&ab)[4],
-                                         const uint32_t (&as)[4],
-                                         const float* x) {
-#pragma unroll
-  for (int dn = 0; dn < NDT; ++dn) {
-    uint32_t bb0, bs0, bb1, bs1;
-    split(x[dn * 8], bb0, bs0);
-    split(x[LD + dn * 8], bb1, bs1);
-    mma3(acc[dn], ab, as, bb0, bb1, bs0, bs1);
-  }
-}
-
-// c[n] += A Y^T over the head dim: A rows from `a` (a row-major tile in
-// shared memory, this warp's 16 rows), Y's rows n*8 .. n*8 + 7 from `y`
-template <int NDT, int NN>
-__device__ __forceinline__ void mma_abt(float (&c)[NN][4], const float* a,
-                                        const float* y, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < NDT; ++kk) {
-    uint32_t ab[4], as[4];
-    a_frag(a + g * LD + kk * 8 + t, ab, as);
-#pragma unroll
-    for (int n = 0; n < NN; ++n) {
-      const float* yr = y + (n * 8 + g) * LD + kk * 8 + t;
-      uint32_t bb0, bs0, bb1, bs1;
-      split(yr[0], bb0, bs0);
-      split(yr[4], bb1, bs1);
-      mma3(c[n], ab, as, bb0, bb1, bs0, bs1);
-    }
-  }
-}
-
-// dst[i] = src[row0 + i] for i < N, 0 past nrows
-template <int N>
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int row0, int nrows) {
-  for (int i = threadIdx.x; i < N; i += NT) {
-    const bool ok = row0 + i < nrows;
-    cp_async4(dst + i, ok ? src + row0 + i : src, ok);
+  if (p.Lk == 0) {
+    float* qr = p.dq + b * p.dq_sb + h * p.dq_sh + i * p.dq_sl;
+    for (int d = lane; d < p.D; d += 32) qr[d] = 0.f;
   }
 }
 
 template <int NDT>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(NT, 1) flash_bwd_kernel(
     const BwdParams p) {
   constexpr int DK = NDT * 8;
-  constexpr int QN = BQS / 8;
+  constexpr int NH = NDT / 2;  // dK/dV: 8-column steps a warp (D/2)
+  constexpr int NG = NH < 4 ? NH : 4;  // of them a pass group
+  constexpr int NQ = NDT / 4;  // dQ: 8-column steps a warp (D/4)
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);  // [BKV][LD]
-  float* vs = ks + TILE_FLOATS;                  // [BKV][LD]
-  float* st = vs + TILE_FLOATS;                  // [2][Q, dO][BQS][LD]
-  float* rs = st + 4 * STAGE_FLOATS;             // [2][lse, Dd][BQS]
+  float* vs = ks + TILE_KV;                      // [BKV][LD]
+  float* qst = vs + TILE_KV;           // [2][BQS][LD] Q, two stages
+  float* dos = qst + 2 * TILE_Q;       // [BQS][LD] dO
+  float* vecs = dos + TILE_Q;          // [2][lse, Dd][BQS]
+  float* dst = vecs + 4 * BQS;         // [BKV][LDT] dS^T
+  float* pt = dst + TILE_P;            // [BKV][LDT] P^T, queries by pcol
+  float* dqo = pt;  // [BQS][LD] after dV's products: the dq the part adds to
+  __shared__ int item_s;
 
-  const int BH = p.B * p.H;
-  const int bh = blockIdx.x % BH;
-  const int k0 = (blockIdx.x / BH) * BKV;  // causal: heaviest tiles first
-  const int b = bh / p.H, h = bh % p.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-  const int kw = k0 + r0;  // the warp's first key
   const int D = p.D;
-
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* db = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* lb = p.lse + (long long)bh * p.Lq;
-  const float* ddb = p.dd + (long long)bh * p.Lq;
-
+  const int BH = p.B * p.H;
+  const int nkt = (p.Lk + BKV - 1) / BKV;
   const int nqt = (p.Lq + BQS - 1) / BQS;
-  // causal: the first query tile that holds a row qi >= k0
-  const int qt0 = p.causal ? min(k0 / BQS, nqt) : 0;
-
-  load_tile<BKV, DK>(ks, kb, p.k_sl, k0, p.Lk, D, p.vec);
-  load_tile<BKV, DK>(vs, vb, p.v_sl, k0, p.Lk, D, p.vec);
-  if (qt0 < nqt) {
-    load_tile<BQS, DK>(st, qb, p.q_sl, qt0 * BQS, p.Lq, D, p.vec);
-    load_tile<BQS, DK>(st + STAGE_FLOATS, db, p.do_sl, qt0 * BQS, p.Lq, D,
-                       p.vec);
-    load_vec<BQS>(rs, lb, qt0 * BQS, p.Lq);
-    load_vec<BQS>(rs + BQS, ddb, qt0 * BQS, p.Lq);
-  }
-  cp_async_commit();
-
-  float dk[NDT][4], dv[NDT][4];
-#pragma unroll
-  for (int dn = 0; dn < NDT; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+  const int total = BH * nkt;
   const float sl2 = p.scale * LOG2E;
 
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int it = qt - qt0;
-    const int q0 = qt * BQS;
-    if (qt + 1 < nqt) {
-      const int nx = (it + 1) & 1;
-      float* sq = st + nx * 2 * STAGE_FLOATS;
-      load_tile<BQS, DK>(sq, qb, p.q_sl, q0 + BQS, p.Lq, D, p.vec);
-      load_tile<BQS, DK>(sq + STAGE_FLOATS, db, p.do_sl, q0 + BQS, p.Lq, D,
-                         p.vec);
-      load_vec<BQS>(rs + nx * 2 * BQS, lb, q0 + BQS, p.Lq);
-      load_vec<BQS>(rs + nx * 2 * BQS + BQS, ddb, q0 + BQS, p.Lq);
+  // warp roles: phase 1 on keys kr .. kr + 15 x queries qc .. qc + 31;
+  // dV (warps 0-3) / dK (4-7) on keys 32 mh .. + 31, columns ch * D/2 ..;
+  // the dQ part on queries 32 qh .. + 31, columns cq * D/4 ..
+  const bool second = warp >= 4;
+  const int kr = (warp & 3) * 16, qc = (warp >> 2) * 32;
+  const int mh = (warp & 3) >> 1, ch = warp & 1;
+  const int qh = warp & 1, cq = warp >> 1;
+
+  for (;;) {
+    __syncthreads();  // the last item's reads of item_s are done
+    if (threadIdx.x == 0) item_s = atomicAdd(p.work, 1);
+    __syncthreads();
+    const int n = item_s;
+    if (n >= total) break;
+    // item n -> (key tile j, batch*head bh), key tiles ascending
+    const int j = n / BH, bh = n - j * BH;
+    const int b = bh / p.H, h = bh % p.H;
+    const int k0 = j * BKV;
+    // causal: the first query tile that holds a row qi >= k0
+    const int i_min = p.causal ? k0 / BQS : 0;
+    const int steps = max(0, nqt - i_min);
+    int* flags = p.work + 1 + (long long)bh * nqt;
+
+    const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+    const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+    const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+    const float* db = p.dout + b * p.do_sb + h * p.do_sh;
+    const float* lb = p.lse + (long long)bh * p.Lq;
+    const float* ddb = p.dd + (long long)bh * p.Lq;
+    float* dqb = p.dq + b * p.dq_sb + h * p.dq_sh;
+
+    load_tile<BKV, DK>(ks, kb, p.k_sl, k0, p.Lk, D, p.vec);
+    load_tile<BKV, DK>(vs, vb, p.v_sl, k0, p.Lk, D, p.vec);
+    if (steps > 0) {
+      const int q0 = (nqt - 1) * BQS;
+      load_tile<BQS, DK>(qst, qb, p.q_sl, q0, p.Lq, D, p.vec);
+      load_tile<BQS, DK>(dos, db, p.do_sl, q0, p.Lq, D, p.vec);
+      load_vec<BQS>(vecs, lb, q0, p.Lq);
+      load_vec<BQS>(vecs + BQS, ddb, q0, p.Lq);
     }
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // stage it has landed for every thread
 
-    const float* sq = st + (it & 1) * 2 * STAGE_FLOATS;
-    const float* sdo = sq + STAGE_FLOATS;
-    const float* sl = rs + (it & 1) * 2 * BQS;
-    const float* sd = sl + BQS;
-    if (!(p.causal && q0 + BQS - 1 < kw)) {
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries each;
-      // s[n][e] is key kw + g + 8 * (e >> 1), query q0 + 8n + 2t + (e & 1)
-      float s[QN][4], dp[QN][4];
+    float acc[2][NH][4];
 #pragma unroll
-      for (int n = 0; n < QN; ++n)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      mma_abt<NDT, QN>(s, ks + r0 * LD, sq, g, t);
-      mma_abt<NDT, QN>(dp, vs + r0 * LD, sdo, g, t);
-      const bool masked = q0 + BQS > p.Lq || (p.causal && q0 < kw + 15);
+      for (int nn = 0; nn < NH; ++nn)
 #pragma unroll
-      for (int n = 0; n < QN; ++n)
+        for (int e = 0; e < 4; ++e) acc[mt][nn][e] = 0.f;
+
+    for (int s = 0; s < steps; ++s) {
+      const int q0 = (nqt - 1 - s) * BQS;
+      const float* sq = qst + (s & 1) * TILE_Q;
+      const float* sl = vecs + (s & 1) * 2 * BQS;
+      const float* sd = sl + BQS;
+      cp_async_wait<0>();
+      // stage s (and K, V) landed; every warp is done with step s - 1
+      __syncthreads();
+      if (s + 1 < steps) {  // the next Q, lse and Dd, into the other buffer
+        const int q1 = q0 - BQS;
+        load_tile<BQS, DK>(qst + ((s + 1) & 1) * TILE_Q, qb, p.q_sl, q1,
+                           p.Lq, D, p.vec);
+        float* nv = vecs + ((s + 1) & 1) * 2 * BQS;
+        load_vec<BQS>(nv, lb, q1, p.Lq);
+        load_vec<BQS>(nv + BQS, ddb, q1, p.Lq);
+        cp_async_commit();
+      }
+
+      // phase 1: S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries a
+      // warp; c[0][n][e] (S^T) and c[1][n][e] (dP^T) are key
+      // k0 + kr + g + 8 (e >> 1), query q0 + qc + 8n + 2t + (e & 1)
+      const bool dead = k0 + kr >= p.Lk ||
+                        (p.causal && q0 + qc + 31 < k0 + kr);
+      float c[2][4][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int nq = 0; nq < 4; ++nq)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[x][nq][e] = 0.f;
+      if (!dead) {
+        const float* kp = ks + (kr + g) * LD + t;
+        const float* vp = vs + (kr + g) * LD + t;
+        const float* qp = sq + (qc + g) * LD + t;
+        const float* op = dos + (qc + g) * LD + t;
+#pragma unroll
+        for (int kk = 0; kk < NDT; ++kk) {
+          uint32_t ab[4], as[4], bb[4][2], bs[4][2];
+          a_frag<LD>(kp + kk * 8, ab, as);
+#pragma unroll
+          for (int nq = 0; nq < 4; ++nq) {
+            const float* br = qp + nq * 8 * LD + kk * 8;
+            split_rz(br[0], bb[nq][0], bs[nq][0]);
+            split_rz(br[4], bb[nq][1], bs[nq][1]);
+          }
+          mma3_passes<4>(c[0], ab, as, bb, bs);
+          a_frag<LD>(vp + kk * 8, ab, as);
+#pragma unroll
+          for (int nq = 0; nq < 4; ++nq) {
+            const float* br = op + nq * 8 * LD + kk * 8;
+            split_rz(br[0], bb[nq][0], bs[nq][0]);
+            split_rz(br[4], bb[nq][1], bs[nq][1]);
+          }
+          mma3_passes<4>(c[1], ab, as, bb, bs);
+        }
+      }
+      // P^T (masked to 0) and dS^T = P^T (dP^T - Dd) scale into shared
+      // memory
+      const bool masked = k0 + kr + 16 > p.Lk || q0 + qc + 32 > p.Lq ||
+                          (p.causal && q0 + qc < k0 + kr + 15);
+#pragma unroll
+      for (int nq = 0; nq < 4; ++nq)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t + (e & 1);
-          float pv = exp2f(fmaf(s[n][e], sl2, -sl[qc] * LOG2E));
+          const int kl = kr + g + 8 * (e >> 1);
+          const int ql = qc + nq * 8 + 2 * t + (e & 1);
+          float pv = dead ? 0.f
+                          : exp2f(fmaf(c[0][nq][e], sl2, -sl[ql] * LOG2E));
           if (masked) {
-            const int qi = q0 + qc, key = kw + g + 8 * (e >> 1);
-            if (qi >= p.Lq || (p.causal && qi < key)) pv = 0.f;
+            const int key = k0 + kl, qi = q0 + ql;
+            if (key >= p.Lk || qi >= p.Lq || (p.causal && qi < key))
+              pv = 0.f;
           }
-          dp[n][e] = pv * (dp[n][e] - sd[qc]) * p.scale;  // dS^T
-          s[n][e] = pv;                                   // P^T
+          const int at = kl * LDT + pcol(ql);
+          pt[at] = pv;
+          dst[at] = pv * (c[1][nq][e] - sd[ql]) * p.scale;
         }
-      // dV += P^T dO and dK += dS^T Q, k-step n over queries 8n .. 8n + 7
-#pragma unroll
-      for (int n = 0; n < QN; ++n) {
-        uint32_t ab[4], as[4];
-        a_from_c(s[n], ab, as);
-        mma_rows<NDT>(dv, ab, as, sdo + (n * 8 + 2 * t) * LD + g);
-        a_from_c(dp[n], ab, as);
-        mma_rows<NDT>(dk, ab, as, sq + (n * 8 + 2 * t) * LD + g);
-      }
-    }
-    __syncthreads();  // every reader is done before the stage is refilled
-  }
-  cp_async_wait<0>();
+      __syncthreads();  // P^T and dS^T written
 
-  float* dkb = p.dk + b * p.dk_sb + h * p.dk_sh;
-  float* dvb = p.dv + b * p.dv_sb + h * p.dv_sh;
+      // phase 2a: dV += P^T dO (warps 0-3), dK += dS^T Q (4-7): 32 keys x
+      // D/2, k-steps of 8 queries (A columns t, t + 4 hold queries 2t,
+      // 2t + 1, the B rows read)
+      {
+        const float* ap = (second ? dst : pt) + (32 * mh + g) * LDT + t;
+        const float* bp = (second ? sq : dos) + 2 * t * LD + ch * (DK / 2) + g;
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int key = kw + g + 8 * rr;
-    if (key >= p.Lk) continue;
-    float* kr = dkb + key * p.dk_sl;
-    float* vr = dvb + key * p.dv_sl;
+        for (int kq = 0; kq < BQS / 8; ++kq) {
+          uint32_t ab[2][4], as[2][4];
+          a_frag<LDT>(ap + kq * 8, ab[0], as[0]);
+          a_frag<LDT>(ap + 16 * LDT + kq * 8, ab[1], as[1]);
+          const float* br = bp + kq * 8 * LD;
 #pragma unroll
-    for (int dn = 0; dn < NDT; ++dn) {
-      const int col = dn * 8 + 2 * t;
-      if (col < D) {
-        kr[col] = dk[dn][2 * rr];
-        vr[col] = dv[dn][2 * rr];
+          for (int n0 = 0; n0 < NH; n0 += NG) {
+            uint32_t bb[NG][2], bs[NG][2];
+#pragma unroll
+            for (int nn = 0; nn < NG; ++nn) {
+              split_rz(br[(n0 + nn) * 8], bb[nn][0], bs[nn][0]);
+              split_rz(br[LD + (n0 + nn) * 8], bb[nn][1], bs[nn][1]);
+            }
+#pragma unroll
+            for (int nn = 0; nn < NG; ++nn) {
+              mma_tf32(acc[0][n0 + nn], ab[0], bs[nn][0], bs[nn][1]);
+              mma_tf32(acc[1][n0 + nn], ab[1], bs[nn][0], bs[nn][1]);
+            }
+#pragma unroll
+            for (int nn = 0; nn < NG; ++nn) {
+              mma_tf32(acc[0][n0 + nn], as[0], bb[nn][0], bb[nn][1]);
+              mma_tf32(acc[1][n0 + nn], as[1], bb[nn][0], bb[nn][1]);
+            }
+#pragma unroll
+            for (int nn = 0; nn < NG; ++nn) {
+              mma_tf32(acc[0][n0 + nn], ab[0], bb[nn][0], bb[nn][1]);
+              mma_tf32(acc[1][n0 + nn], ab[1], bb[nn][0], bb[nn][1]);
+            }
+          }
+        }
       }
-      if (col + 1 < D) {
-        kr[col + 1] = dk[dn][2 * rr + 1];
-        vr[col + 1] = dv[dn][2 * rr + 1];
+
+      // wait until key tile j - 1 has added its part of this query tile
+      // (thread 0; the barrier below passes the acquire on): a predecessor
+      // is a running CTA's item and takes microseconds, so 2^24 polls
+      // (seconds) mean a broken order and fail the launch rather than hang
+      // the card
+      if (threadIdx.x == 0 && j > 0) {
+        int ns = 32;
+        for (int polls = 0; ld_acquire(flags + q0 / BQS) != j; ++polls) {
+          if (polls == (1 << 24)) __trap();
+          __nanosleep(ns);
+          ns = min(ns * 2, 256);
+        }
       }
+      __syncthreads();  // dO and P^T read; this tile's turn has come
+      // the dq this tile's part adds to, into P^T's place, under the
+      // products below (16-byte copies, which bypass L1; rows that are not
+      // 16-byte aligned load it at the add instead); then the next dO
+      if (j > 0 && p.vec)
+        load_tile<BQS, DK>(dqo, dqb, p.dq_sl, q0, p.Lq, D, p.vec);
+      cp_async_commit();
+      if (s + 1 < steps) {
+        load_tile<BQS, DK>(dos, db, p.do_sl, q0 - BQS, p.Lq, D, p.vec);
+        cp_async_commit();
+      }
+
+      // phase 2b: the dQ part dS K, 32 queries x D/4 a warp, k-steps of 8
+      // keys (A columns t, t + 4 hold keys 2t, 2t + 1)
+      float part[2][NQ][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nn = 0; nn < NQ; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][nn][e] = 0.f;
+      {
+        int cm[2][2];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          cm[mt][0] = pcol(32 * qh + 16 * mt + g);
+          cm[mt][1] = pcol(32 * qh + 16 * mt + 8 + g);
+        }
+        const float* kp = ks + 2 * t * LD + cq * (DK / 4) + g;
+#pragma unroll
+        for (int kk = 0; kk < BKV / 8; ++kk) {
+          const float* a0 = dst + (kk * 8 + 2 * t) * LDT;
+          const float* br = kp + kk * 8 * LD;
+          uint32_t bb[NQ][2], bs[NQ][2];
+#pragma unroll
+          for (int nn = 0; nn < NQ; ++nn) {
+            split_rz(br[nn * 8], bb[nn][0], bs[nn][0]);
+            split_rz(br[LD + nn * 8], bb[nn][1], bs[nn][1]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            uint32_t ab[4], as[4];
+            split_rz(a0[cm[mt][0]], ab[0], as[0]);
+            split_rz(a0[cm[mt][1]], ab[1], as[1]);
+            split_rz(a0[LDT + cm[mt][0]], ab[2], as[2]);
+            split_rz(a0[LDT + cm[mt][1]], ab[3], as[3]);
+            mma3_passes<NQ>(part[mt], ab, as, bb, bs);
+          }
+        }
+      }
+      if (s + 1 < steps) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // the old dq has landed for every thread
+      // key tile 0 stores its part; the others add it to the sum so far
+      // (8-byte stores where rows are 16-byte aligned)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nn = 0; nn < NQ; ++nn)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int rl = 32 * qh + 16 * mt + g + 8 * rr;
+            const int col = cq * (DK / 4) + nn * 8 + 2 * t;
+            if (q0 + rl >= p.Lq) continue;
+            float2 v = make_float2(part[mt][nn][2 * rr],
+                                   part[mt][nn][2 * rr + 1]);
+            float* ptr = dqb + (q0 + rl) * p.dq_sl + col;
+            if (p.vec) {
+              if (j > 0) {
+                const float2 o =
+                    *reinterpret_cast<const float2*>(dqo + rl * LD + col);
+                v.x = o.x + v.x;
+                v.y = o.y + v.y;
+              }
+              if (col < D) __stcg(reinterpret_cast<float2*>(ptr), v);
+            } else {
+              if (col < D) __stcg(ptr, j > 0 ? __ldcg(ptr) + v.x : v.x);
+              if (col + 1 < D)
+                __stcg(ptr + 1, j > 0 ? __ldcg(ptr + 1) + v.y : v.y);
+            }
+          }
+      __syncthreads();  // every thread's adds issued
+      if (threadIdx.x == 0) red_release(flags + q0 / BQS, 1);
     }
+    cp_async_wait<0>();  // no copy outlives the item (steps == 0 leaves K/V's)
+
+    // dV (warps 0-3) or dK (4-7), rows of keys k0 + 32 mh + 16 mt + g (+8)
+    float* ob = second ? p.dk + b * p.dk_sb + h * p.dk_sh
+                       : p.dv + b * p.dv_sb + h * p.dv_sh;
+    const long long osl = second ? p.dk_sl : p.dv_sl;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = k0 + 32 * mh + 16 * mt + g + 8 * rr;
+        if (key >= p.Lk) continue;
+        float* orow = ob + key * osl;
+#pragma unroll
+        for (int nn = 0; nn < NH; ++nn) {
+          const int col = ch * (DK / 2) + nn * 8 + 2 * t;
+          if (col < D) orow[col] = acc[mt][nn][2 * rr];
+          if (col + 1 < D) orow[col + 1] = acc[mt][nn][2 * rr + 1];
+        }
+      }
   }
 }
 
-template <int NDT>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_kernel(
-    const BwdParams p) {
-  constexpr int DK = NDT * 8;
-  constexpr int KN = BKS / 8;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* dos = qs + TILE_FLOATS;                 // [BQ][LD]
-  float* kvs = dos + TILE_FLOATS;                // [2][K, V][BKS][LD]
-
-  const int BH = p.B * p.H;
-  const int nq = (p.Lq + BQ - 1) / BQ;
-  const int bh = blockIdx.x % BH;
-  const int q0 = (nq - 1 - blockIdx.x / BH) * BQ;  // heaviest tiles first
-  const int b = bh / p.H, h = bh % p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-  const int D = p.D;
-
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* db = p.dout + b * p.do_sb + h * p.do_sh;
-
-  int n_kt = (p.Lk + BKS - 1) / BKS;
-  if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.Lq) - 1) / BKS + 1);
-
-  load_tile<BQ, DK>(qs, qb, p.q_sl, q0, p.Lq, D, p.vec);
-  load_tile<BQ, DK>(dos, db, p.do_sl, q0, p.Lq, D, p.vec);
-  if (n_kt > 0) {
-    load_tile<BKS, DK>(kvs, kb, p.k_sl, 0, p.Lk, D, p.vec);
-    load_tile<BKS, DK>(kvs + STAGE_FLOATS, vb, p.v_sl, 0, p.Lk, D, p.vec);
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n <= 0)
+      return 132;
+    counts[dev] = n;
   }
-  cp_async_commit();
+  return counts[dev];
+}
 
-  // rows qa and qa + 8: lse (times log2 e) and Dd
-  const int qa = q0 + r0 + g;
-  float ml[2], dr[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = qa + 8 * rr;
-    const bool ok = row < p.Lq;
-    ml[rr] = ok ? p.lse[(long long)bh * p.Lq + row] * LOG2E : 0.f;
-    dr[rr] = ok ? p.dd[(long long)bh * p.Lq + row] : 0.f;
-  }
-  const float sl2 = p.scale * LOG2E;
-  float dq[NDT][4];
-#pragma unroll
-  for (int dn = 0; dn < NDT; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[dn][e] = 0.f;
-
-  for (int it = 0; it < n_kt; ++it) {
-    const int k0 = it * BKS;
-    if (it + 1 < n_kt) {
-      float* nxt = kvs + ((it + 1) & 1) * 2 * STAGE_FLOATS;
-      load_tile<BKS, DK>(nxt, kb, p.k_sl, k0 + BKS, p.Lk, D, p.vec);
-      load_tile<BKS, DK>(nxt + STAGE_FLOATS, vb, p.v_sl, k0 + BKS, p.Lk, D,
-                         p.vec);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const float* ks = kvs + (it & 1) * 2 * STAGE_FLOATS;
-    const float* vs = ks + STAGE_FLOATS;
-    if (!(p.causal && k0 > q0 + r0 + 15)) {
-      // S = Q K^T and dP = dO V^T: 16 rows x 32 keys; s[n][e] is row
-      // qa + 8 * (e >> 1), key k0 + 8n + 2t + (e & 1)
-      float s[KN][4], dp[KN][4];
-#pragma unroll
-      for (int n = 0; n < KN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      mma_abt<NDT, KN>(s, qs + r0 * LD, ks, g, t);
-      mma_abt<NDT, KN>(dp, dos + r0 * LD, vs, g, t);
-      const bool masked =
-          k0 + BKS > p.Lk || (p.causal && k0 + BKS - 1 > q0 + r0);
-#pragma unroll
-      for (int n = 0; n < KN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pv = exp2f(fmaf(s[n][e], sl2, -ml[e >> 1]));
-          if (masked) {
-            const int key = k0 + n * 8 + 2 * t + (e & 1);
-            const int row = qa + 8 * (e >> 1);
-            if (key >= p.Lk || (p.causal && row < key)) pv = 0.f;
-          }
-          s[n][e] = pv * (dp[n][e] - dr[e >> 1]) * p.scale;  // dS
-        }
-      // dQ += dS K, k-step n over keys k0 + 8n .. + 7
-#pragma unroll
-      for (int n = 0; n < KN; ++n) {
-        uint32_t ab[4], as[4];
-        a_from_c(s[n], ab, as);
-        mma_rows<NDT>(dq, ab, as, ks + (n * 8 + 2 * t) * LD + g);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  float* dqb = p.dq + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = qa + 8 * rr;
-    if (row >= p.Lq) continue;
-    float* qr = dqb + row * p.dq_sl;
-#pragma unroll
-    for (int dn = 0; dn < NDT; ++dn) {
-      const int col = dn * 8 + 2 * t;
-      if (col < D) qr[col] = dq[dn][2 * rr];
-      if (col + 1 < D) qr[col + 1] = dq[dn][2 * rr + 1];
-    }
-  }
+// int32 words of the work array of a call: the item counter and one dQ
+// flag a (batch*head, query tile)
+long long bwd_work_words(int B, int H, int Lq) {
+  return (long long)B * H * ((Lq + BQS - 1) / BQS) + 1;
 }
 
 template <int NDT>
-int launch_bwd(const BwdParams& p, cudaStream_t stream) {
+int launch_bwd(BwdParams p, cudaStream_t stream) {
   const long long rows = (long long)p.B * p.H * p.Lq;
-  const long long bh = (long long)p.B * p.H;
-  const long long dq_blocks = bh * ((p.Lq + BQ - 1) / BQ);
-  const long long dkv_blocks = bh * ((p.Lk + BKV - 1) / BKV);
-  const long long row_blocks = (rows + NWARP - 1) / NWARP;
   if (rows <= 0) return 0;
-  if (row_blocks > 0x7fffffffLL || dq_blocks > 0x7fffffffLL ||
-      dkv_blocks > 0x7fffffffLL)
+  const long long nwork = bwd_work_words(p.B, p.H, p.Lq);
+  const long long row_blocks = (rows + NWARP - 1) / NWARP;
+  const long long bh = (long long)p.B * p.H;
+  const long long nkt = (p.Lk + BKV - 1) / BKV;
+  const long long items = bh * nkt;
+  if (row_blocks > 0x7fffffffLL || items > 0x7fffffffLL ||
+      nwork > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<NDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)DQ_SMEM_BYTES);
+      flash_bwd_kernel<NDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BWD_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<NDT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DKV_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_delta_kernel<<<(unsigned)row_blocks, NT, 0, stream>>>(p);
+  flash_bwd_prologue_kernel<<<(unsigned)row_blocks, NT, 0, stream>>>(
+      p, (int)nwork);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<NDT>
-      <<<(unsigned)dq_blocks, NT, DQ_SMEM_BYTES, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (dkv_blocks > 0)
-    flash_bwd_dkdv_kernel<NDT>
-        <<<(unsigned)dkv_blocks, NT, DKV_SMEM_BYTES, stream>>>(p);
+  if (err != cudaSuccess || items == 0) return (int)err;
+  const long long grid = min(items, (long long)sm_count());
+  flash_bwd_kernel<NDT><<<(unsigned)grid, NT, BWD_SMEM_BYTES, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -829,16 +971,24 @@ extern "C" int mxtt_flash_attention_fwd(
 }
 
 
+
+// int32 words of the work array K3b's entry point takes for (B, H, Lq)
+extern "C" long long mxtt_flash_attention_bwd_work_words(int B, int H,
+                                                         int Lq) {
+  return bwd_work_words(B, H, Lq);
+}
+
 // Plain C entry point of K3b, loaded with ctypes.  Pointers are device
 // pointers (dlse may be null); strides are in elements; the last dimension
 // of q, k, v, out, do, dq, dk and dv is contiguous; lse, dlse and dd are
-// contiguous (B, H, Lq) f32 arrays, dd a scratch the call fills.  Launches
-// three kernels on `stream` and returns the first error of
-// cudaGetLastError() (0 when every launch was taken).
+// contiguous (B, H, Lq) f32 arrays, dd a scratch the call fills, work a
+// scratch of mxtt_flash_attention_bwd_work_words int32 words.  Launches a
+// row prologue and the persistent kernel on `stream` and returns the first
+// error of cudaGetLastError() (0 when every launch was taken).
 extern "C" int mxtt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, const void* dlse, void* dq, void* dk,
-    void* dv, void* dd, int B, int H, int Lq, int Lk, int D,
+    void* dv, void* dd, void* work, int B, int H, int Lq, int Lk, int D,
     long long q_sb, long long q_sh, long long q_sl,
     long long k_sb, long long k_sh, long long k_sl,
     long long v_sb, long long v_sh, long long v_sl,
@@ -860,6 +1010,7 @@ extern "C" int mxtt_flash_attention_bwd(
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
   p.dd = static_cast<float*>(dd);
+  p.work = static_cast<int*>(work);
   p.B = B; p.H = H; p.Lq = Lq; p.Lk = Lk; p.D = D;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sl = q_sl;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sl = k_sl;

@@ -15,9 +15,11 @@ plain PyTorch versions), counterpart of ``mxnet_tpu/ops/attention.py``.
   JAX package, which has no Pallas backward): ``delta = sum_d do*o``,
   ``p = exp(s - lse)`` masked to 0, ``ds = p*(dp - delta + dlse)*scale``.
 * :func:`flash_attention_bwd_cuda` — the wrapper of kernel K3b, the same
-  backward by hand in the same source (a row pass for ``delta - dlse``,
-  a dK/dV kernel, a dQ kernel; no atomics, so gradients repeat bit for
-  bit).  ``flash_attention_bwd_cuda.launches`` counts one per call.
+  backward by hand in the same source (a row prologue for ``delta -
+  dlse``, then one persistent kernel: five products a (key tile, query
+  tile) pair, dq summed in a fixed key-tile order through integer flags,
+  no floating-point atomics, so gradients repeat bit for bit).
+  ``flash_attention_bwd_cuda.launches`` counts one per call.
 * :class:`FlashAttention` — the ``torch.autograd.Function`` joining them
   (the counterpart of ``_flash``/``_flash_pair``'s ``custom_vjp``): its
   forward saves ``(q, k, v, out, lse)``; its backward takes the
@@ -181,12 +183,15 @@ flash_attention_cuda.launches = 0
 def _bwd_c_args(lib):
     fn = lib.mxtt_flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 24
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        words = lib.mxtt_flash_attention_bwd_work_words
+        words.argtypes = [ctypes.c_int] * 3
+        words.restype = ctypes.c_longlong
+    return fn, lib.mxtt_flash_attention_bwd_work_words
 
 
 def _check_like(name, t, shape, device):
@@ -223,15 +228,18 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal, scale):
         do = do.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dd = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    fn = _bwd_c_args(_kernels.load("flash_attention"))
-    vec = int(d % 4 == 0 and all(_vector_ok(t) for t in (q, k, v, do)))
+    fn, work_words = _bwd_c_args(_kernels.load("flash_attention"))
+    # the item counter and the dq flags; the kernel's prologue zeroes them
+    work = torch.empty((work_words(b, h, lq),), dtype=torch.int32,
+                       device=q.device)
+    vec = int(d % 4 == 0 and all(_vector_ok(t) for t in (q, k, v, do, dq)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  do.data_ptr(), lse.data_ptr(),
                  None if dlse is None else dlse.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dd.data_ptr(),
-                 b, h, lq, lk, d,
+                 work.data_ptr(), b, h, lq, lk, d,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
                  *dk.stride()[:3], *dv.stride()[:3], float(scale),
@@ -243,8 +251,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal, scale):
     return dq, dk, dv
 
 
-#: calls of kernel K3b (three CUDA kernels each) in this process (reset
-#: freely)
+#: calls of kernel K3b (a prologue and the persistent kernel each) in this
+#: process (reset freely)
 flash_attention_bwd_cuda.launches = 0
 
 

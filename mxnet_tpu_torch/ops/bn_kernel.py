@@ -3,7 +3,8 @@
 ``mxnet_tpu/ops/bn_pallas.py``.
 
 * :func:`bn_fwd_plain` / :func:`bn_bwd_plain` — the same math in torch
-  (two-pass statistics in f32).  Taken for CPU tensors.
+  (exact statistics, summed in f64 by :func:`batch_stats`).  Taken for
+  CPU tensors.
 * :func:`bn_fwd_cuda` / :func:`bn_bwd_cuda` — the wrappers of kernels K1
   and K2 (``csrc/batch_norm.cu``), which replace the TPU kernels
   ``bn_pallas.py::_bn_fwd_kernel`` and ``::_bn_bwd_kernel``; the source
@@ -36,8 +37,8 @@ from .. import _kernels
 from ..base import MXNetError
 from . import launches
 
-__all__ = ["bn_fwd_plain", "bn_bwd_plain", "bn_fwd_cuda", "bn_bwd_cuda",
-           "bn_plan", "bn_train", "BatchNormTrain"]
+__all__ = ["batch_stats", "bn_fwd_plain", "bn_bwd_plain", "bn_fwd_cuda",
+           "bn_bwd_cuda", "bn_plan", "bn_train", "BatchNormTrain"]
 
 def _view(t, ndim):
     """(C,) -> (1, C, 1, ...) for broadcasting against NC[spatial]."""
@@ -51,12 +52,25 @@ def _scale_shift(mean, var, gamma, beta, eps, fix_gamma):
     return rstd, scale, beta.float() - mean * scale
 
 
+def batch_stats(xf):
+    """Biased ``(mean, var)`` over all axes but 1 of the f32 ``xf``,
+    summed in f64 and rounded to f32: exact statistics, which K1 matches
+    to within its f32 partial sums (it merges them in f64).  Two-pass f32
+    sums in torch moved one ReLU input of a small ResNet across zero at
+    its fourth SGD step on raw 0-255 pixels, against the JAX package's
+    fit (``tests/test_torch_preemption.py``).  Autograd flows through
+    the casts (``output_mean_var``)."""
+    red = (0,) + tuple(range(2, xf.ndim))
+    x = xf.double()
+    mean = x.mean(dim=red)
+    var = torch.square(x - _view(mean, xf.ndim)).mean(dim=red)
+    return mean.float(), var.float()
+
+
 def bn_fwd_plain(x, gamma, beta, eps, fix_gamma, relu=False):
     """K1's function in torch: ``(y, mean, var)``, stats f32 ``(C,)``."""
-    red = (0,) + tuple(range(2, x.ndim))
     xf = x.float()
-    mean = xf.mean(dim=red)
-    var = torch.square(xf - _view(mean, x.ndim)).mean(dim=red)
+    mean, var = batch_stats(xf)
     _rstd, scale, shift = _scale_shift(mean, var, gamma, beta, eps,
                                        fix_gamma)
     y = xf * _view(scale, x.ndim) + _view(shift, x.ndim)

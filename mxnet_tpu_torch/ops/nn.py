@@ -177,14 +177,11 @@ def _batch_norm(attrs, inputs, aux, is_train, act_type=None):
                                             relu)
         return [out], [_moving(moving_mean, mean, mom),
                        _moving(moving_var, var, mom)]
-    red = (0,) + tuple(range(2, x.ndim))
     bshape = (1, -1) + (1,) * (x.ndim - 2)
     if use_batch:
         # output_mean_var: mean and var are outputs that carry gradients,
-        # so this mode stays plain tensor code (two-pass, f32, biased)
-        xf = x.float()
-        mean = xf.mean(dim=red)
-        var = torch.square(xf - mean.reshape(bshape)).mean(dim=red)
+        # so this mode stays plain tensor code (f32, biased)
+        mean, var = bn_kernel.batch_stats(x.float())
     else:
         mean, var = moving_mean, moving_var
     g = torch.ones_like(gamma) if fix_gamma else gamma

@@ -5,8 +5,14 @@ On the CPU the port's wrapper takes its plain version
 Pallas interpret mode (``_flash_pallas(..., interpret=True)``) and with the
 quadratic reference ``_attn_reference``, for ``out`` and ``lse``.  The
 tolerance ``rtol=atol=1e-5`` covers f32 sums taken in another order.
-The kernel itself runs only on the card: ``tests/test_torch_cuda.py``.
+The kernels themselves run only on the card: ``tests/test_torch_cuda.py``.
+Here the arithmetic of K3 and of the backward K3b is emulated in torch
+(their TF32 splits, K3b's dq order), held against float64 and the JAX
+package, and K3b's source is checked for floating-point atomics.
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +20,8 @@ import pytest
 import torch
 
 import mxnet_tpu as jmx
-from mxnet_tpu.ops.attention import _attn_reference, _flash_pallas
+from mxnet_tpu.ops.attention import (_attn_reference, _flash_bwd_core,
+                                     _flash_pallas)
 from mxnet_tpu_torch.ops import attention as tatt
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -187,3 +194,111 @@ def test_tf32_split_meets_the_kernel_tolerance():
               % (passes, err_o.max().item(), err_l.max().item()))
     assert over[(3, 3)] <= 0
     assert all(over[p] > 0 for p in ((3, 1), (1, 3), (1, 1)))
+
+
+K3B_TILE = 64  # keys a K3b work item holds
+K3B_PRODUCTS = ("S^T = K Q^T", "dP^T = V dO^T", "dV = P^T dO",
+                "dK = dS^T Q", "dQ = dS K")
+
+
+def _k3b_product(a, b, passes):
+    """``a @ b`` as K3b takes it: each operand split toward zero (big =
+    the low 13 mantissa bits cleared, small = the rest, which the tensor
+    cores read truncated), then one TF32 product or three summed in f32
+    (big*small + small*big + big*big)."""
+    ab, bb = _tf32_rz(a), _tf32_rz(b)
+    if passes == 1:
+        return ab @ bb
+    return ab @ _tf32_rz(b - bb) + _tf32_rz(a - ab) @ bb + ab @ bb
+
+
+def _k3b_emulated(q, k, v, out, lse, do, scale, passes):
+    """K3b's arithmetic, causal, in torch f32: for each 64-key tile the
+    five products with ``passes[i]`` TF32 passes for product i, over the
+    queries that can see the tile; dq summed over the key tiles in
+    ascending order (tile 0 stores, each later tile adds its part), the
+    kernel's fixed order."""
+    log2e = 1.4426950408889634
+    dd = (do * out).sum(-1)
+    lq = q.shape[-2]
+    dq = torch.zeros_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, k.shape[-2], K3B_TILE):
+        kj, vj = k[..., k0:k0 + K3B_TILE, :], v[..., k0:k0 + K3B_TILE, :]
+        qs, dos = q[..., k0:, :], do[..., k0:, :]
+        st = _k3b_product(kj, qs.transpose(-1, -2), passes[0])
+        pt = torch.exp2(st * (scale * log2e)
+                        - lse[..., None, k0:] * log2e)
+        keys = k0 + torch.arange(kj.shape[-2])[:, None]
+        pt = torch.where(keys <= k0 + torch.arange(lq - k0)[None], pt, 0.0)
+        dpt = _k3b_product(vj, dos.transpose(-1, -2), passes[1])
+        dst = pt * (dpt - dd[..., None, k0:]) * scale
+        dv[..., k0:k0 + K3B_TILE, :] = _k3b_product(pt, dos, passes[2])
+        dk[..., k0:k0 + K3B_TILE, :] = _k3b_product(dst, qs, passes[3])
+        part = _k3b_product(dst.transpose(-1, -2), kj, passes[4])
+        dq[..., k0:, :] = part if k0 == 0 else dq[..., k0:, :] + part
+    return dq, dk, dv
+
+
+def test_k3b_arithmetic_meets_the_kernel_tolerance():
+    """K3b's arithmetic emulated on the CPU at the LM's shape (L=2048,
+    D=128, causal): with three TF32 passes in each of the five products,
+    the split toward zero and dq summed in the kernel's key-tile order,
+    dq, dk and dv lie within 1e-4 of each output's magnitude of a float64
+    backward and of the JAX package's ``_flash_bwd_core``.  One TF32 pass
+    in any one of the five products, the others at three, misses that
+    tolerance (2e-3 for S^T and dP^T, 6e-4 to 9e-4 for dV, dK and dQ;
+    each one's error is printed), so each product takes three passes."""
+    b, h, L, d = 1, 1, 2048, 128
+    rs = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rs.normal(0, 1, (b, h, L, d))
+                                    .astype(np.float32)) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = tatt.flash_attention_plain(q, k, v, True, scale)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s = q64 @ k64.transpose(-1, -2) * scale
+    s = torch.where(torch.arange(L)[:, None] >= torch.arange(L)[None], s,
+                    torch.tensor(-1e30, dtype=torch.float64))
+    p = torch.softmax(s, -1)
+    dp = do64 @ v64.transpose(-1, -2)
+    ds = p * (dp - (do64 * (p @ v64)).sum(-1, keepdim=True)) * scale
+    ref = (ds @ k64, ds.transpose(-1, -2) @ q64, p.transpose(-1, -2) @ do64)
+    jax_grads = _flash_bwd_core(
+        True, scale, 128, 128, tuple(jnp.asarray(t.numpy())
+                                     for t in (q, k, v, out, lse)),
+        jnp.asarray(do.numpy()))
+
+    def worst(got, want):
+        return max(((g.double() - w).abs().max()
+                    / max(1.0, w.abs().max())).item()
+                   for g, w in zip(got, want))
+
+    got = _k3b_emulated(q, k, v, out, lse, do, scale, (3,) * 5)
+    assert worst(got, ref) <= 1e-4
+    assert worst(got, [torch.from_numpy(np.array(g)).double()
+                       for g in jax_grads[:3]]) <= 1e-4
+    misses = []
+    for i, name in enumerate(K3B_PRODUCTS):
+        passes = tuple(1 if j == i else 3 for j in range(5))
+        err = worst(_k3b_emulated(q, k, v, out, lse, do, scale, passes),
+                    ref)
+        print("K3b with one TF32 pass in %s: %.3g of the magnitude"
+              % (name, err))
+        if err > 1e-4:
+            misses.append(name)
+    assert misses == list(K3B_PRODUCTS)
+
+
+def test_k3b_source_has_no_floating_point_atomics():
+    """K3b sums dq in a fixed order: its source adds floats only with
+    plain loads and stores; the one atomic it takes is the integer work
+    counter, and its reductions (``red``) are integer adds on the flags."""
+    path = os.path.join(os.path.dirname(tatt.__file__), "..", "csrc",
+                        "flash_attention.cu")
+    with open(path) as f:
+        src = f.read()
+    k3b = src[src.index("// K3b: the backward"):]
+    assert re.findall(r"atomicAdd\(([^,]+),", k3b) == ["p.work"]
+    assert not re.search(r"\b(atomicAdd|atomicExch)\(\s*\(?\s*float", k3b)
+    reds = re.findall(r"\b(?:red|atom)\.[a-z0-9.:]+", k3b)
+    assert reds and all(r.endswith(".s32") for r in reds), reds

@@ -12,8 +12,9 @@
 Inputs are made by numpy from a seed.  f32 throughout.  Tolerance
 ``rtol=1e-4, atol=1e-5``: the sums run in another order (pairwise in
 torch, a sequential grid in the JAX kernel, XLA's own in its executor),
-the JAX executor's statistics are a shifted single pass where the port
-takes two passes, and ``rsqrt`` is not rounded like ``1 / sqrt``.
+the JAX kernel's statistics take two passes where the port, like the JAX
+executor, takes a shifted single pass, and ``rsqrt`` is not rounded like
+``1 / sqrt``.
 """
 
 import jax
@@ -227,3 +228,22 @@ def test_bn_plan_needs_a_cuda_device():
     would build the kernels."""
     with pytest.raises(tmx.MXNetError, match="CUDA device"):
         bn_kernel.bn_plan(128, 64, 56 * 56, False, "cpu")
+
+
+def test_batch_stats_are_exact_on_raw_pixels():
+    """The plain BatchNorm's statistics are the float64 ones rounded once
+    to f32, bit for bit, on the inputs where two-pass f32 sums went wrong:
+    the fourth batch of ``test_torch_preemption.py``'s raw 0-255 pixels
+    (``bn_data``; there two-pass f32 sums put the mean two ulps off, and
+    the fit left the JAX fit at that step)."""
+    rs = np.random.RandomState(5)
+    x = rs.uniform(0, 255, (16, 3, 40, 40)).astype(np.float32)[12:16]
+    mean, var = bn_kernel.batch_stats(torch.from_numpy(x))
+    x64 = x.astype(np.float64)
+    np.testing.assert_array_equal(mean.numpy(),
+                                  x64.mean(axis=(0, 2, 3)).astype(np.float32))
+    np.testing.assert_array_equal(var.numpy(),
+                                  x64.var(axis=(0, 2, 3)).astype(np.float32))
+    _y, fmean, fvar = bn_kernel.bn_fwd_plain(
+        torch.from_numpy(x), torch.ones(3), torch.zeros(3), 2e-5, True)
+    assert torch.equal(fmean, mean) and torch.equal(fvar, var)

@@ -1,8 +1,8 @@
 """What the card scripts at the repository root compute without a card:
-their source edits and their sums.  ``chip_smoke.py``,
-``chip_bn_costs.py`` and ``chip_lstm_costs.py`` run only on an NVIDIA
-card; these checks keep the parts that do not need one from failing
-there first."""
+their source edits, their sums and the build reports they parse.
+``chip_smoke.py``, ``chip_bn_costs.py``, ``chip_lstm_costs.py`` and
+``chip_k3b_costs.py`` run only on an NVIDIA card; these checks keep the
+parts that do not need one from failing there first."""
 
 import importlib.util
 import os
@@ -22,13 +22,15 @@ def _script(name):
 
 def _edits(name):
     mod = _script(name)
-    src = "batch_norm.cu" if name == "chip_bn_costs" else "lstm.cu"
+    src = {"chip_bn_costs": "batch_norm.cu", "chip_lstm_costs": "lstm.cu",
+           "chip_k3b_costs": "flash_attention.cu"}[name]
     edits = [(v, e) for v, es in mod.VARIANTS.items() for e in es]
     edits += [("every variant", e) for e in getattr(mod, "SMID", [])]
     return src, edits
 
 
-@pytest.mark.parametrize("name", ["chip_bn_costs", "chip_lstm_costs"])
+@pytest.mark.parametrize("name", ["chip_bn_costs", "chip_lstm_costs",
+                                  "chip_k3b_costs"])
 def test_variant_edits_match_the_kernel_source_once(name):
     """Each variant is the committed source with edits that must each
     match exactly once, or the script stops before it times anything."""
@@ -91,3 +93,21 @@ def test_environment_sets_and_restores(monkeypatch):
             raise KeyError
     assert os.environ["MXNET_FUSE_TRAIN_STEP"] == "0"
     assert "MXNET_BULK_TRAIN_STEPS" not in os.environ
+
+
+def test_ptxas_report_reads_registers_and_spills_per_kernel():
+    from types import SimpleNamespace as NS
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z3fwdv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fwdv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 191 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z3bwdv' for 'sm_90a'",
+        "    16 bytes stack frame, 12 bytes spill stores, 28 bytes spill "
+        "loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 16 bytes smem"])
+    kernels = NS(build_log=lambda lib: log if lib == "flash_attention"
+                 else "")
+    report = _script("chip_smoke").ptxas_report(kernels, "flash_attention")
+    assert report == {"_Z3fwdv": (191, 0, 0), "_Z3bwdv": (255, 12, 28)}

@@ -211,6 +211,76 @@ def test_k3b_repeats_bit_for_bit(cuda_device, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    # one head group on 132 SMs (the balanced grid at B=1), and 1024 work
+    # items, many times the persistent grid
+    (1, 8, 2048, 2048, 128), (8, 16, 512, 512, 64)])
+def test_k3b_repeats_bit_for_bit_on_the_persistent_grid(cuda_device, causal,
+                                                        b, h, lq, lk, d):
+    """dq's key tiles are summed in a fixed order whichever CTA takes
+    them: two launches agree bit for bit, and both agree with the plain
+    version."""
+    q, k, v, do, dlse = _k3b_inputs(b, h, lq, lk, d, 17, cuda_device)
+    scale = d ** -0.5
+    out, lse = tatt.flash_attention_cuda(q, k, v, causal, scale)
+    one = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal,
+                                        scale)
+    two = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal,
+                                        scale)
+    torch.cuda.synchronize()
+    for a, c in zip(one, two):
+        assert torch.equal(a, c)
+    want = tatt.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse,
+                                          causal, scale)
+    for g, w in zip(one, want):
+        _assert_close_scaled(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,d,offset", [
+    # ragged both ways under the causal mask, past one key tile (64) and
+    # one query stage (32): key tiles that see no query write zeros
+    (1337, 1901, 128, 0), (1901, 1337, 128, 0), (95, 300, 64, 0),
+    # odd head dims take the 4-byte copies and the scalar dq adds
+    (300, 300, 72, 1), (300, 300, 5, 0), (77, 131, 72, 0)])
+def test_k3b_ragged_causal_and_odd_head_dims(cuda_device, lq, lk, d,
+                                             offset):
+    q, k, v, do, dlse = _k3b_inputs(2, 3, lq, lk, d, lq + d, cuda_device,
+                                    offset)
+    scale = d ** -0.5
+    out, lse = tatt.flash_attention_cuda(q, k, v, True, scale)
+    got = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, True,
+                                        scale)
+    again = tatt.flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, True,
+                                          scale)
+    torch.cuda.synchronize()
+    want = tatt.flash_attention_bwd_plain(q, k, v, out, lse, do, dlse, True,
+                                          scale)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _assert_close_scaled(g, w)
+
+
+@pytest.mark.cuda
+def test_k3b_same_bits_on_two_streams(cuda_device):
+    """No floating-point atomics: the same inputs launched at once on two
+    streams (their CTAs sharing the card) give the same bits."""
+    q, k, v, do, dlse = _k3b_inputs(2, 8, 1024, 1024, 128, 23, cuda_device)
+    out, lse = tatt.flash_attention_cuda(q, k, v, True, 0.1)
+    torch.cuda.synchronize()
+    results = []
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    for st in streams:
+        with torch.cuda.stream(st):
+            results.append(tatt.flash_attention_bwd_cuda(
+                q, k, v, out, lse, do, dlse, True, 0.1))
+    torch.cuda.synchronize()
+    for a, c in zip(*results):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
 def test_autograd_through_the_kernels_matches_plain(cuda_device):
     """``flash_attention_with_lse`` under autograd on the card: K3 forward
     and K3b backward, once each, against the plain pair on the same

@@ -30,6 +30,8 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu.models import resnet as jresnet
 from mxnet_tpu_torch.models import resnet as tresnet
 
+from torch_deadline import deadline  # noqa: F401 (autouse)
+
 BATCH, CLASSES, IMAGE = 4, 4, (3, 40, 40)
 RESNET = dict(units=[1, 1], num_stages=2, filter_list=[8, 16, 32],
               num_classes=CLASSES, image_shape=IMAGE, bottle_neck=True)

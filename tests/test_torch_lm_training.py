@@ -41,6 +41,8 @@ from mxnet_tpu_torch.models import copy_task
 from mxnet_tpu_torch.module.base_module import _PreemptGuard
 from mxnet_tpu_torch.ops import attention as tatt
 
+from torch_deadline import deadline  # noqa: F401 (autouse)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, EMBED, HEADS, SEQ, BATCH = 50, 32, 2, 16, 4
 ATT_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -31,6 +31,8 @@ from mxnet_tpu_torch.model import checkpoint_manifest, load_latest_checkpoint
 from mxnet_tpu_torch.models import resnet as tresnet
 from mxnet_tpu_torch.module.base_module import _PreemptGuard
 
+from torch_deadline import deadline  # noqa: F401 (autouse)
+
 N, DIM, CLASSES, BATCH, EPOCHS = 64, 8, 3, 16, 2
 RESNET = dict(units=[1, 1], num_stages=2, filter_list=[8, 16, 32],
               num_classes=4, image_shape=(3, 40, 40), bottle_neck=True)
@@ -283,6 +285,32 @@ def port_fits(r_init, tmp_path_factory):
         return made[mode]
 
     return get
+
+
+def test_resnet_fit_tracks_jax_through_step_four(r_init):
+    """One epoch of the four ResNet batches, SGD without a scheduler, the
+    port's fit against the JAX package's, ``rtol=1e-4, atol=1e-5`` (f32
+    sums in another order).  At the fourth step one ReLU input of
+    ``stage2_unit1_bn1`` lies 4e-6 below zero in the JAX fit.  With
+    two-pass f32 BatchNorm statistics the port put it 4.5e-7 above zero
+    and left the JAX fit (1.27e-4 in ``conv0_weight`` after the step);
+    with exact statistics (``bn_kernel.batch_stats``, summed in f64) it
+    lands on zero, where the ReLU passes no gradient either."""
+    x, y = _r_data()
+    opt = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+    fits = []
+    for mx, res in ((jmx, jresnet), (tmx, tresnet)):
+        mod = mx.mod.Module(res.resnet(**RESNET), context=mx.cpu())
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=R_BATCH), num_epoch=1,
+                optimizer="sgd", optimizer_params=dict(opt),
+                arg_params={k: mx.nd.array(v) for k, v in r_init[0].items()},
+                aux_params={k: mx.nd.array(v) for k, v in r_init[1].items()},
+                force_init=True)
+        fits.append({k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+    want, got = fits
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("kill_at", [1, 2, 4])
