@@ -41,7 +41,12 @@
    the port's under ``build/bn_parent/``; not measured when absent), the
    plain versions and the bound (bytes over 3.35 TB/s: K1 reads x and
    writes y, K2 reads x and g and writes dx); summed over the step and
-   over the 50 BatchNorms outside bn_data.
+   over the 50 BatchNorms outside bn_data.  Then the same at every
+   distinct BatchNorm input of the Inception-v3 b128 step (eps 1e-3,
+   fix_gamma, ReLU fused; 149x149 down to 8x8, all but 8x8 odd, so the
+   4-byte copies on clusters of up to 15 CTAs and the chunked path),
+   summed over its 94 BatchNorms.  Every shape's K1 and K2 must repeat
+   bit for bit across two launches.
 5. LSTM kernel phase: at each bucket length T in {10, ..., 60}, N=32,
    H=200, f32, K4 (inference forward), K5 (training forward) and K6
    (backward) held against their plain versions (forward outputs within
@@ -165,7 +170,32 @@
    (plain versions) from the same weights; each parameter's update
    within 1e-4 of its norm (3x the floor if an embedding perturbed by
    1e-7 moves the CPU's own update by more).
-11. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
+12. Inception-v3 training phase: ``Module(inception-v3).fit`` on the card
+   at full width (3x299x299, 1000 classes, f32, batch 128) over 6 seeded
+   batches as ``common/data.py``'s ``SyntheticDataIter`` makes them, with
+   ``common/fit.py``'s settings (SGD momentum 0.9, wd 1e-4, lr 0.1 with
+   the ``MultiFactorScheduler`` of ``lr_step_epochs="30,60"``, Xavier
+   gaussian in 2, accuracy), classic and then sync-free (the switches of
+   phase 7b).  Each run must launch K1 and K2 94 times a step (a replay
+   adds what its capture recorded), call no plain BatchNorm on the card
+   and end finite; a replayed step must run as many K1/K2 kernels as an
+   eager one.  Prints step ms, images/s, peak memory and a profile of
+   one step of each (cuDNN convolutions, K1+K2, the rest).
+13. Inception-v3 step parity: phase 8's check on one b4 Inception-v3 step
+   (inputs uniform in [-1, 1)), each parameter within 3x the f32 floor.
+14. MNIST phase (BASELINE #1): ``train_mnist.py``'s synthetic MNIST
+   written as idx files by ``models.lenet.synth_mnist``, read through
+   ``io.MNISTIter``; LeNet and the MLP (``flat``) fit two epochs on the
+   card and on the CPU from the same seeded weights and batches (b64, SGD
+   lr 0.05 momentum 0.9 wd 1e-4, Xavier gaussian in 2): the card's
+   validation accuracy finite and within 0.02 of the CPU's, or within 3x
+   the CPU's own spread on three 1e-7-perturbed training sets where that
+   is larger (at this lr LeNet diverges from some seeds, as in the JAX
+   package, and a diverged fit is chaotic).  Then one
+   epoch of LeNet on the card with each other optimizer of
+   ``common/fit.py`` (NAG, DCASGD, SGLD, ccSGD, AdaGrad, RMSProp plain
+   and centered, AdaDelta, Test): a finite loss and finite parameters.
+15. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
    name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
@@ -212,6 +242,13 @@ LM_BATCH, LM_BATCHES, LM_LR = 4, 8, 1e-2
 LSTM_VOCAB, LSTM_EMBED, LSTM_HIDDEN, LSTM_LAYERS = 10000, 200, 200, 2
 LSTM_BATCH, LSTM_BUCKETS = 32, (10, 20, 30, 40, 50, 60)
 LSTM_TRAIN_SENTENCES, LSTM_VAL_SENTENCES = 1200, 400
+
+
+def _dev_us(e):
+    """A profiler event's own device time in us (the attribute's name
+    changed between torch versions)."""
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
 
 
 def _time_ms(fn, iters, warmup=2):
@@ -749,13 +786,9 @@ def lm_profile(mx, mod, batch, steady_ms):
         step()
         wall = (time.perf_counter() - t) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0
+    kernels = [e for e in prof.key_averages() if _dev_us(e) > 0
                and e.device_type.name == "CUDA"]
-    total = sum(dev_us(e) for e in kernels) / 1e3
+    total = sum(_dev_us(e) for e in kernels) / 1e3
     if total <= 0:
         print("lm profile: the profiler recorded no device time (not "
               "measured)", flush=True)
@@ -774,7 +807,7 @@ def lm_profile(mx, mod, batch, steady_ms):
     for e in kernels:
         k = e.key.lower()
         name = next((n for n, test in rules if test(k)), "other")
-        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
+        groups[name] = groups.get(name, 0.0) + _dev_us(e) / 1e3
     busy = total - groups.get("memcpy", 0.0)
     print("lm profile of one training step with its metric update: wall "
           "%.2f ms (steady step %.2f ms), device busy %.3f ms with the "
@@ -784,9 +817,9 @@ def lm_profile(mx, mod, batch, steady_ms):
               busy, 100 * max(0.0, 1 - busy / wall),
               ", ".join("%s %.3f ms" % kv for kv in sorted(
                   groups.items(), key=lambda kv: -kv[1]))), flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:10]:
         print("lm profile  %8.3f ms  x%-4d %s" % (
-            dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
+            _dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
 
 
 @contextlib.contextmanager
@@ -1020,16 +1053,13 @@ def checked_step(mod, batch, bnk):
                                "beyond %g: %s" % (kernel, BN_STEP_TOL, bad))
 
 
-def resnet_bn_configs(mx, batch):
+def net_bn_configs(mx, net, data_shape):
     """{(input shape, fix_gamma, relu fused): count} over the BatchNorm
-    nodes of the ResNet-50 training step at ``batch``, read from the graph
-    the way the executor's peephole reads it."""
+    nodes of ``net``'s training step at ``data_shape``, read from the
+    graph the way the executor's peephole reads it."""
     from mxnet_tpu_torch.executor import _bn_relu_peephole
 
-    net = mx.models.get_symbol("resnet", num_classes=1000, num_layers=50,
-                               image_shape="3,224,224")
-    var_shape, _, entry = net._infer_shapes_full(
-        {"data": (batch, 3, 224, 224)})
+    var_shape, _, entry = net._infer_shapes_full({"data": data_shape})
     nodes = net._nodes()
     fused = set(_bn_relu_peephole(net, nodes)[0])
     configs = {}
@@ -1042,6 +1072,13 @@ def resnet_bn_configs(mx, batch):
         key = (shape, bool(node.attrs["fix_gamma"]), id(node) in fused)
         configs[key] = configs.get(key, 0) + 1
     return configs
+
+
+def resnet_bn_configs(mx, batch):
+    """The BatchNorm configs of the ResNet-50 training step at ``batch``."""
+    net = mx.models.get_symbol("resnet", num_classes=1000, num_layers=50,
+                               image_shape="3,224,224")
+    return net_bn_configs(mx, net, (batch, 3, 224, 224))
 
 
 def _cold_time_ms(fn, inputs, iters, warmup=2):
@@ -1096,14 +1133,19 @@ def bn_library(bnk, lib):
         bnk._kernels = kernels
 
 
-def _plan_text(plan):
+def _plan_text(plan, s):
+    """A ``bn_plan`` in words, with the copies a strip of ``s`` floats
+    takes on the resident path (the kernels launch VEC = 4 when S % 4 ==
+    0, torch's allocations being 16-byte aligned)."""
     if plan["path"] == "chunked":
         return "chunked (%d blocks)" % plan["clusters"]
     return ("resident: %d clusters of %d CTA(s) (%d at once), %d "
-            "channel(s) of %d strips and %d KB of shared memory a CTA"
+            "channel(s) of %d strips and %d KB of shared memory a CTA, %s"
             % (plan["clusters"], plan["ctas_per_cluster"],
                plan["active_clusters"], plan["channels_per_cta"],
-               plan["strips_per_cta"], plan["smem_bytes"] // 1024))
+               plan["strips_per_cta"], plan["smem_bytes"] // 1024,
+               "VEC 4 (bulk copies)" if s % 4 == 0
+               else "VEC 1 (4-byte cp.async)"))
 
 
 def bn_step_total(rows, key, keep=lambda r: True):
@@ -1115,13 +1157,15 @@ def bn_step_total(rows, key, keep=lambda r: True):
     return sum(v * n for v, n in vals)
 
 
-def bn_kernel_phase(bnk, dev, seed, configs, parent_lib=None):
+def bn_kernel_phase(bnk, dev, seed, configs, parent_lib=None, eps=2e-5,
+                    net="ResNet-50"):
     """K1 and K2 against their plain versions at every BatchNorm input of
-    the step, timed with the L2 cold beside the library calls and, when
-    ``parent_lib`` is given, the kernels before the resident path under
-    the same timer; returns one row per config and the step totals."""
+    ``net``'s step (its BatchNorms' ``eps``), and each against a second
+    launch of itself bit for bit, timed with the L2 cold beside the
+    library calls and, when ``parent_lib`` is given, the kernels before
+    the resident path under the same timer; returns one row per config
+    and the step totals."""
     rows = []
-    eps = 2e-5
     for (shape, fix_gamma, relu), count in sorted(
             configs.items(), key=lambda kv: -math.prod(kv[0][0])):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1147,7 +1191,16 @@ def bn_kernel_phase(bnk, dev, seed, configs, parent_lib=None):
             if max(e[1] for e in errs) > 1e-4:
                 raise RuntimeError("%s disagrees with its plain version at "
                                    "%s: %s" % (name, shape, errs))
-        del y, dx, plain
+        again = (bnk.bn_fwd_cuda(x, gamma, beta, eps, fix_gamma, relu),
+                 bnk.bn_bwd_cuda(x, g, mean, var, gamma, beta, eps,
+                                 fix_gamma, relu))
+        torch.cuda.synchronize()
+        for name, first, second in (("K1", (y, mean, var), again[0]),
+                                    ("K2", (dx, dg, db), again[1])):
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise RuntimeError("%s is not bit for bit across two "
+                                   "launches at %s" % (name, shape))
+        del y, dx, plain, again
         n = x.numel()
         s = n // (shape[0] * c)
         plans = [bnk.bn_plan(shape[0], c, s, bwd, dev) for bwd in (0, 1)]
@@ -1219,19 +1272,22 @@ def bn_kernel_phase(bnk, dev, seed, configs, parent_lib=None):
             t = row[kind + "_parent_ms"]
             return "not measured" if t is None else "%.4f" % t
 
-        print("kernel batch_norm %s fix_gamma=%s relu=%s (x%d per step; "
+        print("kernel batch_norm %s %s fix_gamma=%s relu=%s (x%d per step; "
+              "bit for bit across two launches; "
               "L2 cold: %d copies of the inputs): K1 %.4f ms (bound %.4f, "
               "%.0f%% of 3.35 TB/s), parent %s, plain %.4f, F.batch_norm "
               "%.4f; K2 %.4f ms (bound %.4f, %.0f%%), parent %s, plain "
               "%.4f, native_batch_norm_backward %.4f; max_abs_err K1 %.3g "
               "K2 %.3g (scaled %.2g / %.2g); plan K1 %s; K2 %s"
-              % (shape, fix_gamma, relu, count, len(copies), row["fwd_ms"],
+              % (net, shape, fix_gamma, relu, count, len(copies),
+                 row["fwd_ms"],
                  fwd_bound, 100 * fwd_bound / row["fwd_ms"], parent("fwd"),
                  fwd_plain, row["fwd_library_ms"], row["bwd_ms"], bwd_bound,
                  100 * bwd_bound / row["bwd_ms"], parent("bwd"), bwd_plain,
                  row["bwd_library_ms"], row["fwd_err"], row["bwd_err"],
                  max(e[1] for e in fwd_errs), max(e[1] for e in bwd_errs),
-                 _plan_text(plans[0]), _plan_text(plans[1])), flush=True)
+                 _plan_text(plans[0], s), _plan_text(plans[1], s)),
+              flush=True)
         del x, g, copies, fwd_args, bwd_args
     torch.cuda.empty_cache()
 
@@ -1249,11 +1305,12 @@ def bn_kernel_phase(bnk, dev, seed, configs, parent_lib=None):
             plain_ms=step_total(kind + "_plain_ms"),
             bound_ms=step_total(kind + "_bound_ms"), bound_by="bytes",
             library_ms=step_total(kind + "_library_ms"))
-        for keep, what in ((lambda r: True, "the %d BatchNorms of one b%d "
-                            "step" % (sum(r["count"] for r in rows),
-                                      TRAIN_BATCH)),
-                           (not_data, "the %d BatchNorms outside bn_data"
-                            % sum(r["count"] for r in rows if not_data(r)))):
+        sums = [(lambda r: True, "the %d BatchNorms of one %s b%d step"
+                 % (sum(r["count"] for r in rows), net, TRAIN_BATCH))]
+        if not all(not_data(r) for r in rows):
+            sums.append((not_data, "the %d BatchNorms outside bn_data"
+                         % sum(r["count"] for r in rows if not_data(r))))
+        for keep, what in sums:
             parent = step_total(kind + "_parent_ms", keep)
             print("kernel batch_norm %s, summed over %s: kernel %.3f ms, "
                   "bound %.3f ms, parent %s, plain %.3f ms, library %.3f ms"
@@ -1385,6 +1442,10 @@ def training_phase(mx, bnk, seed, steps, bn_totals):
                           params=params)
 
 
+def _is_bn_kernel(name):
+    return "bn_fwd_" in name or "bn_bwd_" in name
+
+
 def profile_step(mod, batch, steady_ms):
     """One more step under torch.profiler: device time by kernel.  A step
     that fails fails the phase; a profiler that records no device time is
@@ -1402,30 +1463,29 @@ def profile_step(mod, batch, steady_ms):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0
+    kernels = [e for e in prof.key_averages() if _dev_us(e) > 0
                and e.device_type.name == "CUDA"]
-    total = sum(dev_us(e) for e in kernels) / 1e3
+    total = sum(_dev_us(e) for e in kernels) / 1e3
     if total <= 0:
         print("profile: the profiler recorded no device time (not "
               "measured)", flush=True)
         return None
-
-    def is_bn(k):
-        return "bn_fwd_" in k or "bn_bwd_" in k
-
-    bn = sum(dev_us(e) for e in kernels if is_bn(e.key)) / 1e3
+    bn = sum(_dev_us(e) for e in kernels if _is_bn_kernel(e.key)) / 1e3
     print("profile of one step (wall %.2f ms under the profiler, "
           "steady step %.2f ms): device busy %.2f ms (idle share %.1f%% "
           "of the profiled wall time), K1+K2 kernels %.2f ms (%.1f%% of "
           "device time)" % (wall, steady_ms, total,
                             100 * max(0.0, 1 - total / wall), bn,
                             100 * bn / total), flush=True)
+    print_kernel_groups(kernels, total)
+    return max(0.0, 1 - total / wall)
+
+
+def print_kernel_groups(kernels, total, label="profile"):
+    """Prints the device time of profiled ``kernels`` by group (cuDNN
+    convolutions, K1/K2, ...) and the twelve longest."""
     groups = {}
-    rules = (("bn_* (K1/K2)", is_bn),
+    rules = (("bn_* (K1/K2)", _is_bn_kernel),
              ("convolution (cuDNN)", lambda k: any(w in k for w in (
                  "conv", "cudnn", "implicit_gemm", "wgrad", "dgrad",
                  "fprop", "winograd", "fft", "gemm_cf32"))),
@@ -1433,21 +1493,21 @@ def profile_step(mod, batch, steady_ms):
              ("optimizer (foreach)", lambda k: "multi_tensor" in k
               or "foreach" in k),
              ("pooling", lambda k: "pool" in k),
+             ("concat (torch.cat)", lambda k: "catarray" in k),
              ("gemm", lambda k: "gemm" in k),
              ("add", lambda k: "add" in k))
     for e in kernels:
         k = e.key.lower()
         name = next((n for n, test in rules if test(k)), "other")
-        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
-    print("profile device time by group: %s" % ", ".join(
+        groups[name] = groups.get(name, 0.0) + _dev_us(e) / 1e3
+    print("%s device time by group: %s" % (label, ", ".join(
         "%s %.2f ms (%.1f%%)" % (k, v, 100 * v / total)
-        for k, v in sorted(groups.items(), key=lambda kv: -kv[1])),
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))),
         flush=True)
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     for e in top:
-        print("profile  %8.3f ms  x%-4d %s" % (dev_us(e) / 1e3, e.count,
-                                               e.key[:110]), flush=True)
-    return max(0.0, 1 - total / wall)
+        print("%s  %8.3f ms  x%-4d %s" % (label, _dev_us(e) / 1e3, e.count,
+                                          e.key[:110]), flush=True)
 
 
 # -- the sync-free training loop (phase 7b) -----------------------------------
@@ -1500,7 +1560,7 @@ def bn_plain_refused(bnk):
 def _bn_kernel_runs(prof):
     """Executions of K1/K2's CUDA kernels in a profile."""
     return sum(e.count for e in prof.key_averages()
-               if "bn_fwd_" in e.key or "bn_bwd_" in e.key)
+               if _is_bn_kernel(e.key))
 
 
 def _profile_pad(dev):
@@ -1739,7 +1799,40 @@ def sync_free_phase(mx, bnk, seed, steps, classic):
     sync_free_profiles(mx, bnk, mod, x, y)
     del mod, it, x
     torch.cuda.empty_cache()
-    return dict(step_ms=steady, floor=dict(zip(names, floor)))
+    return dict(step_ms=steady, floor=dict(zip(names, floor)),
+                launches=launches)
+
+
+def eager_and_replayed_bn_runs(mx, mod, batch):
+    """One eager and one replayed step of the sync-free ``mod`` on
+    ``batch`` (copied to the card first), each under torch.profiler:
+    ``{"eager": (K1/K2 kernel executions, replays), "replayed": (...,
+    ...), "profile": the replayed step's profile}``.  Raises unless the
+    replay ran as many K1/K2 kernels as the eager step, and one replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_batch = mx.io.DataBatch(
+        data=[mx.nd.NDArray(batch.data[0]._t.cuda())],
+        label=[mx.nd.NDArray(batch.label[0]._t.cuda())])
+    runs = {}
+    for name, fused in (("eager", "0"), ("replayed", "1")):
+        with environment({"MXNET_FUSE_TRAIN_STEP": fused}):
+            before = mod._exec.graph_replays
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _profile_pad(dev_batch.data[0]._t.device)
+                mod.forward_backward(dev_batch)
+                mod.update()
+                torch.cuda.synchronize()
+            runs[name] = (_bn_kernel_runs(prof),
+                          mod._exec.graph_replays - before)
+    runs["profile"] = prof
+    if runs["replayed"][1] != 1 or runs["replayed"][0] != runs["eager"][0] \
+            or runs["eager"][0] == 0:
+        raise RuntimeError("the replayed step ran %s K1/K2 kernels, the "
+                           "eager step %s" % (runs["replayed"],
+                                              runs["eager"]))
+    return runs
 
 
 def sync_free_profiles(mx, bnk, mod, x, y):
@@ -1756,31 +1849,12 @@ def sync_free_profiles(mx, bnk, mod, x, y):
 
     it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)
     batch = next(it)
-    dev_batch = mx.io.DataBatch(
-        data=[mx.nd.NDArray(batch.data[0]._t.cuda())],
-        label=[mx.nd.NDArray(batch.label[0]._t.cuda())])
-    runs = {}
-    for name, fused in (("eager", "0"), ("replayed", "1")):
-        with environment({"MXNET_FUSE_TRAIN_STEP": fused}):
-            before = mod._exec.graph_replays
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _profile_pad(dev_batch.data[0]._t.device)
-                mod.forward_backward(dev_batch)
-                mod.update()
-                torch.cuda.synchronize()
-            runs[name] = (_bn_kernel_runs(prof),
-                          mod._exec.graph_replays - before)
+    runs = eager_and_replayed_bn_runs(mx, mod, batch)
     print("sync-free profile: K1/K2 kernel executions in one eager step %d, "
           "in one replayed step %d (replays in that step %d; the plan "
           "gives 110: 49 resident calls of one kernel and 2 chunked of "
           "three, each direction)" % (runs["eager"][0], runs["replayed"][0],
                                       runs["replayed"][1]), flush=True)
-    if runs["replayed"][1] != 1 or runs["replayed"][0] != runs["eager"][0] \
-            or runs["eager"][0] == 0:
-        raise RuntimeError("the replayed step ran %s K1/K2 kernels, the "
-                           "eager step %s" % (runs["replayed"],
-                                              runs["eager"]))
 
     it.reset()
     metric = mx.metric.CompositeEvalMetric(
@@ -2126,11 +2200,11 @@ def checkpoint_phase(mx, bnk, seed, steps, sync_free):
         raise RuntimeError("the async writer wrote no generation")
 
 
-def resnet50_step_updates(mx, ctx, x, y, seed):
-    """One fit step of ResNet-50 from seeded Xavier weights on ``ctx``:
-    ({name: update}, {aux name: value}) as numpy."""
+def step_updates(mx, make_module, ctx, x, y, seed):
+    """One fit step of ``make_module(mx, ctx)`` from seeded Xavier weights
+    on ``ctx``: ({name: update}, {aux name: value}) as numpy."""
     it = mx.io.NDArrayIter(x, y, batch_size=x.shape[0])
-    mod = _resnet50_module(mx, ctx)
+    mod = make_module(mx, ctx)
     mod.bind(it.provide_data, it.provide_label)
     mx.init.seed(seed)
     mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
@@ -2142,8 +2216,11 @@ def resnet50_step_updates(mx, ctx, x, y, seed):
     return {k: arg[k] - before[k] for k in arg}, aux
 
 
-def parity_phase(mx, bnk, seed):
-    """One fit step of the same ResNet-50 on the card and on the CPU.
+def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
+                 net="ResNet-50", image=(3, 224, 224), pixels=(0, 255)):
+    """One fit step of the same network (``make_module``'s, named ``net``)
+    on the card and on the CPU, on a
+    ``PARITY_BATCH`` of ``image``-shaped inputs uniform in ``pixels``.
 
     The first step of a randomly initialized ResNet-50 is ill-conditioned:
     on the CPU alone, an input perturbed by 1e-7 relative moves the
@@ -2158,19 +2235,21 @@ def parity_phase(mx, bnk, seed):
     against the card step through the kernels.  The moving statistics, a
     forward quantity, are held to ``rtol=1e-4, atol=1e-5``."""
     rng = np.random.default_rng(seed + 1)
-    x = rng.uniform(0, 255, (PARITY_BATCH, 3, 224, 224)).astype(np.float32)
+    x = rng.uniform(*pixels, (PARITY_BATCH,) + tuple(image)).astype(
+        np.float32)
     y = rng.integers(0, 1000, PARITY_BATCH).astype(np.float32)
     xps = [(x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(np.float32)
            for _ in range(PARITY_PERTURBATIONS)]
     t = time.perf_counter()
-    gu, gaux = resnet50_step_updates(mx, mx.gpu(0), x, y, seed)
+    gu, gaux = step_updates(mx, make_module, mx.gpu(0), x, y, seed)
     gs = time.perf_counter() - t
     with bn_rerouted(bnk, lambda kernel, plain: plain):
-        qu, _ = resnet50_step_updates(mx, mx.gpu(0), x, y, seed)
+        qu, _ = step_updates(mx, make_module, mx.gpu(0), x, y, seed)
     t = time.perf_counter()
-    cu, caux = resnet50_step_updates(mx, mx.cpu(), x, y, seed)
+    cu, caux = step_updates(mx, make_module, mx.cpu(), x, y, seed)
     cs = time.perf_counter() - t
-    pus = [resnet50_step_updates(mx, mx.cpu(), xp, y, seed)[0] for xp in xps]
+    pus = [step_updates(mx, make_module, mx.cpu(), xp, y, seed)[0]
+           for xp in xps]
 
     names = sorted(cu)
     norm = math.sqrt(sum(float(np.sum(cu[k] ** 2)) for k in names))
@@ -2191,7 +2270,7 @@ def parity_phase(mx, bnk, seed):
 
     aux_err = max(np.abs(gaux[k] - caux[k]).max() / (1e-5 + 1e-4 * np.abs(
         caux[k]).max()) for k in caux)
-    print("parity one fit step b%d ResNet-50, card (%.2f s) vs CPU plain "
+    print("parity one fit step b%d %s, card (%.2f s) vs CPU plain "
           "versions (%.2f s): updates differ by %.3g of their norm, the CPU "
           "on %d perturbed inputs by %s; per tensor, card distance over the "
           "largest perturbed distance: median %.3g, worst %.3g at %s "
@@ -2199,7 +2278,7 @@ def parity_phase(mx, bnk, seed):
           "BatchNorm on the card: it differs from the card's kernel step by "
           "%.3g of the norm, worst %.3g of the floor at %s (not bounded); "
           "moving-stat error %.3g of its limit"
-          % (PARITY_BATCH, gs, cs, glob(card), PARITY_PERTURBATIONS,
+          % (PARITY_BATCH, net, gs, cs, glob(card), PARITY_PERTURBATIONS,
              ["%.3g" % glob(dists(p, cu)) for p in pus], np.median(ratio),
              ratio[worst], names[worst], ratio[gbw], names[gbw],
              glob(plain_bn), plain_bn[wq] / max(floor[wq], 1e-30),
@@ -2212,6 +2291,165 @@ def parity_phase(mx, bnk, seed):
         np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
                                    err_msg=k)
     return ratio[worst]
+
+
+# -- Inception-v3 of train_imagenet.py (phases 12 and 13) ---------------------
+INCEPTION_IMAGE = (3, 299, 299)
+#: BatchNorms of the network, each fix_gamma with a ReLU fused
+INCEPTION_BNS = 94
+#: train_imagenet.py's defaults: lr_step_epochs "30,60" over epochs of
+#: num_examples 1024 / b128 = 8 batches
+INCEPTION_LR_STEPS = (30 * 8, 60 * 8)
+#: its BatchNorms' eps (the op's default)
+INCEPTION_EPS = 1e-3
+
+
+def _inception_module(mx, ctx=None):
+    net = mx.models.get_symbol("inception-v3", num_classes=1000)
+    return mx.mod.Module(net) if ctx is None \
+        else mx.mod.Module(net, context=ctx)
+
+
+def inception_bn_configs(mx, batch):
+    """The BatchNorm configs of the Inception-v3 training step at
+    ``batch``."""
+    net = mx.models.get_symbol("inception-v3", num_classes=1000)
+    return net_bn_configs(mx, net, (batch,) + INCEPTION_IMAGE)
+
+
+def inception_data(seed, steps):
+    """``steps`` seeded b128 batches as ``common/data.py``'s
+    ``SyntheticDataIter`` makes them: data uniform in [-1, 1), labels
+    uniform over the 1000 classes."""
+    rng = np.random.default_rng(seed + 12)
+    n = steps * TRAIN_BATCH
+    x = rng.random((n,) + INCEPTION_IMAGE, dtype=np.float32) * 2 - 1
+    y = rng.integers(0, 1000, n).astype(np.float32)
+    return x, y
+
+
+def inception_fit(mx, bnk, mod, it, seed, sync_free):
+    """The main path of phase 12: ``mod.fit`` over ``it`` with
+    ``common/fit.py``'s settings, the plain BatchNorm refused on the card,
+    the K1/K2 counts set to 0 just before and read just after.  Returns
+    (K1 launches, K2 launches, step ms from CUDA events between batch
+    ends, fit seconds, metric values)."""
+    metric = mx.metric.create("acc")
+    sched = mx.lr_scheduler.MultiFactorScheduler(
+        step=list(INCEPTION_LR_STEPS), factor=0.1)
+    events = []
+
+    def mark(_param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    env = SYNC_FREE_ENV if sync_free else {
+        k: None for k in SYNC_FREE_ENV}
+    start = torch.cuda.Event(enable_timing=True)
+    with environment(env), bn_plain_refused(bnk):
+        mx.init.seed(seed)
+        bnk.bn_fwd_cuda.launches = 0
+        bnk.bn_bwd_cuda.launches = 0
+        start.record()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, eval_metric=metric, kvstore="local",
+                batch_end_callback=[mark], optimizer="sgd",
+                prefetch_to_device=sync_free,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 1e-4, "lr_scheduler": sched},
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = (bnk.bn_fwd_cuda.launches, bnk.bn_bwd_cuda.launches)
+    if sync_free:
+        # chunk ends, spread over the chunk's steps
+        chunk_ms = [start.elapsed_time(events[BULK_K - 1])] + [
+            events[i - BULK_K].elapsed_time(events[i])
+            for i in range(2 * BULK_K - 1, len(events), BULK_K)]
+        step_ms = [t / BULK_K for t in chunk_ms]
+    else:
+        step_ms = [start.elapsed_time(events[0])] + [
+            a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return launches, step_ms, fit_s, dict(metric.get_name_value())
+
+
+def inception_phase(mx, bnk, seed, steps):
+    """Phase 12: ``Module.fit`` of full-width Inception-v3 (b128,
+    3x299x299, f32) on the card, classic and then sync-free, over the same
+    seeded batches.  Each run must launch K1 and K2 94 times a step (the
+    sync-free run by the counters a replay adds), call no plain BatchNorm
+    on the card and end with finite parameters; the sync-free run must
+    replay its captured step in every step after the first, and a
+    replayed step must run as many K1/K2 kernels as an eager one.  Prints
+    step ms, images/s, peak memory and a profile of one step of each.
+    Returns {"classic": ..., "sync_free": ...} with the launches."""
+    x, y = inception_data(seed, steps)
+    out = {}
+    for sync_free in (False, True):
+        name = "sync-free" if sync_free else "classic"
+        it = mx.io.NDArrayIter(x, y, batch_size=TRAIN_BATCH)
+        mod = _inception_module(mx)
+        torch.cuda.reset_peak_memory_stats()
+        launches, step_ms, fit_s, vals = inception_fit(
+            mx, bnk, mod, it, seed, sync_free)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steady = float(np.median(step_ms[1:]))
+        replays = mod._exec.graph_replays
+        print("inception-v3 %s b%d f32 on the card: fit of %d steps %.2f s "
+              "(init and bind included); step ms %s (%s); median after "
+              "the first %.2f ms = %.1f images/s; graph replays %d; "
+              "metrics %s; K1 launches %d, K2 launches %d; peak memory "
+              "allocated %.2f GB"
+              % (name, TRAIN_BATCH, steps, fit_s,
+                 ["%.2f" % t for t in step_ms],
+                 "CUDA events between chunk ends over the chunk's %d steps, "
+                 "the first chunk with the warm-up and the capture" % BULK_K
+                 if sync_free else "CUDA events between batch ends",
+                 steady, TRAIN_BATCH / steady * 1e3, replays, vals,
+                 launches[0], launches[1], peak_gb), flush=True)
+        want = INCEPTION_BNS * steps
+        if launches != (want, want):
+            raise RuntimeError("inception-v3 %s: K1/K2 launched %s times in "
+                               "%d steps, expected %d each per step"
+                               % (name, launches, steps, INCEPTION_BNS))
+        if sync_free and replays != steps - 1:
+            raise RuntimeError("inception-v3 sync-free: the captured step "
+                               "replayed %d times in %d steps"
+                               % (replays, steps))
+        arg, aux = mod.get_params()
+        bad = [k for k, v in list(arg.items()) + list(aux.items())
+               if not torch.isfinite(v._t).all()]
+        if bad or not all(0 <= v <= 1 for v in vals.values()):
+            raise RuntimeError("inception-v3 %s produced non-finite params "
+                               "%s or metrics %s" % (name, bad[:5], vals))
+        it.reset()
+        batch = next(it)
+        if sync_free:
+            runs = eager_and_replayed_bn_runs(mx, mod, batch)
+            prof = runs.pop("profile")
+            print("inception-v3 sync-free profile: K1/K2 kernel executions "
+                  "in one eager step %d, in one replayed step %d (replays "
+                  "in that step %d)" % (runs["eager"][0],
+                                        runs["replayed"][0],
+                                        runs["replayed"][1]), flush=True)
+            kernels = [e for e in prof.key_averages()
+                       if _dev_us(e) > 0 and e.device_type.name == "CUDA"]
+            total = sum(_dev_us(e) for e in kernels) / 1e3
+            if total > 0:
+                print("inception-v3 sync-free profile of one replayed "
+                      "step: device busy %.2f ms" % total, flush=True)
+                print_kernel_groups(kernels, total,
+                                    "inception-v3 replayed step")
+        else:
+            with bn_plain_refused(bnk):
+                profile_step(mod, batch, steady)
+        out["sync_free" if sync_free else "classic"] = dict(
+            launches=launches, step_ms=steady, peak_gb=peak_gb)
+        del mod, it, arg, aux
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- the fused-LSTM language model (K4, K5, K6) -------------------------------
@@ -2631,13 +2869,9 @@ def lstm_profile(mx, mod, it):
         step()
         wall = (time.perf_counter() - t) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0
+    kernels = [e for e in prof.key_averages() if _dev_us(e) > 0
                and e.device_type.name == "CUDA"]
-    total = sum(dev_us(e) for e in kernels) / 1e3
+    total = sum(_dev_us(e) for e in kernels) / 1e3
     if total <= 0:
         print("lstm profile: the profiler recorded no device time (not "
               "measured)", flush=True)
@@ -2654,7 +2888,7 @@ def lstm_profile(mx, mod, it):
     for e in kernels:
         k = e.key.lower()
         name = next((n for n, test in rules if test(k)), "other")
-        groups[name] = groups.get(name, 0.0) + dev_us(e) / 1e3
+        groups[name] = groups.get(name, 0.0) + _dev_us(e) / 1e3
     print("lstm profile of one T=%d training batch with its metric update: "
           "wall %.2f ms, device busy %.3f ms (idle share %.1f%%); by group: "
           "%s" % (max(LSTM_BUCKETS), wall, total,
@@ -2662,9 +2896,9 @@ def lstm_profile(mx, mod, it):
                       "%s %.3f ms" % kv for kv in sorted(
                           groups.items(), key=lambda kv: -kv[1]))),
           flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
         print("lstm profile  %8.3f ms  x%-4d %s" % (
-            dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
+            _dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
 
 
 def lstm_step_updates(mx, lstm_lm, ctx, params, ids):
@@ -2734,6 +2968,115 @@ def lstm_parity_phase(mx, seed):
           flush=True)
 
 
+# -- BASELINE #1: train_mnist.py's LeNet and MLP (phase 14) -------------------
+MNIST_BATCH, MNIST_EPOCHS = 64, 2
+#: train_mnist.py's lr and lr_step_epochs "10" over synth_mnist's 2048
+#: training examples (32 batches of 64 an epoch)
+MNIST_LR, MNIST_LR_STEP = 0.05, 10 * (2048 // 64)
+#: the optimizers common/fit.py's --optimizer can name besides sgd and
+#: adam, each at a learning rate LeNet trains at (fit.py passes momentum
+#: to sgd and nag only)
+MNIST_OPTIMIZERS = (
+    ("nag", {"learning_rate": 0.05, "momentum": 0.9}),
+    ("dcasgd", {"learning_rate": 0.05, "momentum": 0.9}),
+    ("sgld", {"learning_rate": 1e-3}),
+    ("ccsgd", {"learning_rate": 0.05}),
+    ("adagrad", {"learning_rate": 0.01}),
+    ("rmsprop", {"learning_rate": 1e-3}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True,
+                 "clip_weights": 1.0}),
+    ("adadelta", {}),
+    ("test", {}),
+)
+
+
+def mnist_fit(mx, network, paths, ctx, seed, num_epoch=MNIST_EPOCHS,
+              optimizer="sgd", params=None, perturb=None):
+    """``train_mnist.py``'s fit of ``network`` on ``ctx`` over
+    ``MNISTIter`` batches of the idx files at ``paths`` (flat for the
+    MLP), Xavier weights from ``seed``; with ``perturb`` = (relative
+    size, seed) the training images are scaled by 1 + that size times a
+    seeded normal draw.  Returns (seconds, validation accuracy, training
+    metrics, module)."""
+    flat = network == "mlp"
+    train = mx.io.MNISTIter(image=paths["train_img"],
+                            label=paths["train_lab"],
+                            batch_size=MNIST_BATCH, shuffle=True, flat=flat)
+    if perturb is not None:
+        rng = np.random.default_rng(perturb[1])
+        inner = train._inner
+        inner.data = [(k, (v * (1 + perturb[0] * rng.standard_normal(
+            v.shape))).astype(np.float32)) for k, v in inner.data]
+    val = mx.io.MNISTIter(image=paths["val_img"], label=paths["val_lab"],
+                          batch_size=MNIST_BATCH, shuffle=False, flat=flat)
+    with mx.name.NameManager():
+        net = mx.models.get_symbol(network, num_classes=10)
+    mod = mx.mod.Module(net, context=ctx)
+    metric = mx.metric.CompositeEvalMetric(
+        [mx.metric.Accuracy(), mx.metric.CrossEntropy()])
+    if params is None:
+        params = {"learning_rate": MNIST_LR, "momentum": 0.9,
+                  "lr_scheduler": mx.lr_scheduler.MultiFactorScheduler(
+                      step=[MNIST_LR_STEP], factor=0.1)}
+    mx.init.seed(seed)
+    t = time.perf_counter()
+    mod.fit(train, num_epoch=num_epoch, eval_metric=metric,
+            optimizer=optimizer, optimizer_params=dict(params, wd=1e-4),
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2))
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    (_, acc), = mod.score(val, "acc")
+    return seconds, acc, dict(metric.get_name_value()), mod
+
+
+def mnist_phase(mx, seed):
+    """Phase 14: the synthetic MNIST of ``train_mnist.py`` written as idx
+    files by the port's ``synth_mnist``, read through ``MNISTIter``;
+    LeNet (4-D batches) and the MLP (``flat``) fit for two epochs on the
+    card and, from the same seeded weights and batches, on the CPU: the
+    card's validation accuracy must be finite and within 0.02 of the
+    CPU's, or, where the fit is chaotic (at train_mnist.py's lr LeNet
+    diverges from some seeds, in the JAX package too), within 3x the
+    largest distance of the CPU's own accuracy on
+    ``PARITY_PERTURBATIONS`` training sets perturbed by 1e-7, measured in
+    the run.  Then one epoch of LeNet on the card with each other
+    optimizer ``common/fit.py`` can name: its training loss
+    (cross-entropy) and parameters must be finite."""
+    with tempfile.TemporaryDirectory() as d:
+        paths = mx.models.lenet.synth_mnist(d)
+        for network in ("lenet", "mlp"):
+            gs, gacc, gm, _ = mnist_fit(mx, network, paths, mx.gpu(0), seed)
+            cs, cacc, cm, _ = mnist_fit(mx, network, paths, mx.cpu(), seed)
+            spread = [abs(mnist_fit(mx, network, paths, mx.cpu(), seed,
+                                    perturb=(1e-7, seed + i))[1] - cacc)
+                      for i in range(PARITY_PERTURBATIONS)]
+            limit = max(0.02, 3 * max(spread))
+            print("mnist %s b%d, %d epochs of MNISTIter batches: validation "
+                  "accuracy card %.4f (fit %.2f s), CPU %.4f (fit %.2f s), "
+                  "difference %.4f (limit %.4f: 0.02, or 3x the CPU's own "
+                  "spread on perturbed inputs %s); training metrics card "
+                  "%s, CPU %s" % (network, MNIST_BATCH, MNIST_EPOCHS, gacc,
+                                  gs, cacc, cs, abs(gacc - cacc), limit,
+                                  ["%.4f" % v for v in spread], gm, cm),
+                  flush=True)
+            if not math.isfinite(gacc) or not abs(gacc - cacc) <= limit:
+                raise RuntimeError("mnist %s: card accuracy %s against the "
+                                   "CPU's %s" % (network, gacc, cacc))
+        for name, params in MNIST_OPTIMIZERS:
+            s, acc, m, mod = mnist_fit(mx, "lenet", paths, mx.gpu(0), seed,
+                                       1, name, params)
+            arg, _ = mod.get_params()
+            finite = all(torch.isfinite(v._t).all() for v in arg.values())
+            print("mnist lenet optimizer %s %s: one epoch %.2f s, training "
+                  "metrics %s, validation accuracy %.4f, parameters finite "
+                  "%s" % (name, params, s, m, acc, finite), flush=True)
+            if not (finite and math.isfinite(m["cross-entropy"])):
+                raise RuntimeError("mnist lenet with %s: loss %s, finite "
+                                   "parameters %s" % (name, m, finite))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2783,6 +3126,13 @@ def main():
                            % sum(configs.values()))
     _bn_rows, bn_totals = bn_kernel_phase(bnk, dev, args.seed, configs,
                                           parent_bn)
+    inc_configs = inception_bn_configs(mx, TRAIN_BATCH)
+    if sum(inc_configs.values()) != INCEPTION_BNS:
+        raise RuntimeError("Inception-v3 has %d BatchNorms, expected %d"
+                           % (sum(inc_configs.values()), INCEPTION_BNS))
+    _inc_rows, inc_totals = bn_kernel_phase(
+        bnk, dev, args.seed, inc_configs, eps=INCEPTION_EPS,
+        net="Inception-v3")
     lstm_rows = lstm_kernel_phase(rk, dev, args.seed)
     launches = serving_phase(mx, att, dev, args.seed)
     lm_k3, lm_k3b = lm_training_phase(mx, att, args.seed)
@@ -2792,15 +3142,24 @@ def main():
     sync_free = sync_free_phase(mx, bnk, args.seed, TRAIN_STEPS, classic)
     checkpoint_phase(mx, bnk, args.seed, TRAIN_STEPS, sync_free)
     parity_phase(mx, bnk, args.seed)
+    inception = inception_phase(mx, bnk, args.seed, TRAIN_STEPS)
+    parity_phase(mx, bnk, args.seed, _inception_module, "Inception-v3",
+                 INCEPTION_IMAGE, (-1, 1))
     lstm_launches = lstm_training_phase(mx, rk, args.seed)
     lstm_parity_phase(mx, args.seed)
+    mnist_phase(mx, args.seed)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"
     # K3's launches: serving's dispatches and the LM fit and score; K3b's:
     # the LM fit (its time at the training step's shape, B=4 causal)
     # the BatchNorm rows: times summed over the 51 BatchNorms of one b128
-    # step; launches over the whole training run (51 per step)
+    # ResNet-50 step, and under "inception_v3" over the 94 of one b128
+    # Inception-v3 step; launches over the four fits of the main path
+    # (ResNet-50 and Inception-v3, classic and sync-free)
+    inc_launches = [sum(inception[run]["launches"][i]
+                        for run in ("classic", "sync_free"))
+                    for i in (0, 1)]
     kernels = [dict(name="flash_attention_fwd", route="cuda",
                     source="mxnet_tpu_torch/csrc/flash_attention.cu",
                     replaces="mxnet_tpu/ops/attention.py:116",
@@ -2812,10 +3171,16 @@ def main():
                     **k3b_rows[(4, SEQ, SEQ, True, False)]),
                dict(name="batch_norm_fwd", route="cuda", source=source,
                     replaces="mxnet_tpu/ops/bn_pallas.py:87",
-                    launches=k1_launches, **bn_totals["fwd"]),
+                    launches=k1_launches + sync_free["launches"][0]
+                    + inc_launches[0], **bn_totals["fwd"],
+                    inception_v3=dict(inc_totals["fwd"],
+                                      launches=inc_launches[0])),
                dict(name="batch_norm_bwd", route="cuda", source=source,
                     replaces="mxnet_tpu/ops/bn_pallas.py:110",
-                    launches=k2_launches, **bn_totals["bwd"])]
+                    launches=k2_launches + sync_free["launches"][1]
+                    + inc_launches[1], **bn_totals["bwd"],
+                    inception_v3=dict(inc_totals["bwd"],
+                                      launches=inc_launches[1]))]
     # the LSTM rows: times at T=60, N=32, H=200 (the default bucket);
     # launches over the whole fit (K4 in its score pass)
     t_max = max(LSTM_BUCKETS)

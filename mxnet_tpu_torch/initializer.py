@@ -1,12 +1,14 @@
 """Weight initializers (``mx.init``), counterpart of
 ``mxnet_tpu/initializer.py``.
 
-Dispatch by name: ``*_weight`` -> the initializer's rule; ``*_bias``,
-``*_beta`` and ``*moving_mean`` -> 0; ``*_gamma`` and ``*moving_var`` ->
-1; a node attribute ``__init__`` (JSON ``[name, kwargs]``) overrides the
-rule.  Random draws come from an explicit :class:`torch.Generator`: the
-one passed as ``generator=``, else this module's default, reseeded by
-:func:`seed`.  Draws are made on the CPU and copied to the array's device,
+Dispatch by the ending of a name, as the JAX package's: ``*_weight`` ->
+the initializer's rule; ``*upsampling`` -> bilinear weights; ``*_bias``,
+``*_beta``, the moving means and RNN states -> 0; ``*_gamma`` and the
+moving variances -> 1; a node attribute ``__init__`` (JSON ``[name,
+kwargs]``) overrides the rule.  :class:`Load` and :class:`Mixed` pick an
+initializer by name instead.  Random draws come from an explicit
+:class:`torch.Generator`: the one passed as ``generator=``, else this
+module's default, reseeded by :func:`seed`.  Draws are made on the CPU and copied to the array's device,
 so a seed gives the same weights on every device (never the JAX
 package's: its draws come from numpy's global generator).
 """
@@ -15,13 +17,17 @@ from __future__ import annotations
 
 import json
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import Registry
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "FusedRNN", "create", "seed", "registry"]
+           "Constant", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "FusedRNN", "Load", "Mixed", "create", "seed",
+           "registry"]
 
 registry = Registry("initializer")
 
@@ -65,18 +71,54 @@ class Initializer:
                             **kwargs)._init_weight(desc, arr)
             return
         name = desc.lower()
-        if name.endswith("bias") or name.endswith("beta") \
-                or name.endswith("moving_mean"):
-            arr[:] = 0.0
-        elif name.endswith("gamma") or name.endswith("moving_var"):
-            arr[:] = 1.0
+        if name.endswith("upsampling"):
+            self._init_bilinear(desc, arr)
+        elif name.endswith("bias"):
+            self._init_bias(desc, arr)
+        elif name.endswith("gamma"):
+            self._init_gamma(desc, arr)
+        elif name.endswith("beta"):
+            self._init_beta(desc, arr)
         elif name.endswith("weight"):
             self._init_weight(desc, arr)
+        elif name.endswith(("state", "state_cell", "moving_mean",
+                            "running_mean", "moving_inv_var",
+                            "moving_avg")):
+            self._init_zero(desc, arr)
+        elif name.endswith(("moving_var", "running_var")):
+            self._init_one(desc, arr)
         else:
-            raise ValueError("Unknown initialization pattern for %s" % name)
+            self._init_default(desc, arr)
+
+    # -- the slots, by the ending of a parameter's name ----------------------
+    def _init_bilinear(self, _, arr):
+        """An upsampling kernel: bilinear interpolation weights over the
+        last two axes, the same for every (out, in) pair."""
+        shape = arr.shape
+        n = math.prod(shape)
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(n)
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        arr[:] = weight.astype(np.float32).reshape(shape)
+
+    def _init_zero(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, _, arr):
+        arr[:] = 1.0
+
+    _init_bias = _init_zero
+    _init_beta = _init_zero
+    _init_gamma = _init_one
 
     def _init_weight(self, name, arr):
         raise NotImplementedError()
+
+    def _init_default(self, name, arr):
+        raise ValueError("Unknown initialization pattern for %s" % name)
 
 
 @registry.register
@@ -128,6 +170,30 @@ class Constant(Initializer):
 
 
 @registry.register
+class Orthogonal(Initializer):
+    """An orthogonal matrix times ``scale`` (Saxe et al.), from the SVD of
+    a (out, prod(rest)) draw, uniform in [-1, 1] or (``rand_type=
+    "normal"``) standard normal."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", generator=None):
+        super().__init__(generator, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        tmp = torch.empty((nout, nin), dtype=torch.float64)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=self.generator)
+        else:
+            tmp.normal_(0.0, 1.0, generator=self.generator)
+        u, _s, q = torch.linalg.svd(tmp, full_matrices=False)
+        res = u if tuple(u.shape) == (nout, nin) else q
+        arr[:] = (self.scale * res).reshape(arr.shape).float()
+
+
+@registry.register
 class Xavier(Initializer):
     """Scale ``sqrt(magnitude / factor)``, factor the fan in, out or their
     mean, drawn uniform in ``[-scale, scale]`` or normal with std
@@ -159,6 +225,43 @@ class Xavier(Initializer):
         else:
             t.normal_(0.0, scale, generator=self.generator)
         arr[:] = t
+
+
+@registry.register
+class MSRAPrelu(Xavier):
+    """He initialization for a PReLU of ``slope``: Gaussian Xavier of
+    magnitude ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25, generator=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         generator)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@registry.register
+class Bilinear(Initializer):
+    """Bilinear upsampling weights (:meth:`Initializer._init_bilinear`)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
+
+
+@registry.register
+class LSTMBias(Initializer):
+    """Zero, but ``forget_bias`` on the second quarter (the forget gate of
+    the i, f, c, o layout): for a bias and for a weight slot alike."""
+
+    def __init__(self, forget_bias=1.0, generator=None):
+        super().__init__(generator, forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        num_hidden = arr.shape[0] // 4
+        v = np.zeros(arr.shape, dtype=np.float32)
+        v[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = v
+
+    _init_bias = _init_weight
 
 
 @registry.register
@@ -217,6 +320,54 @@ class FusedRNN(Initializer):
                 if self._mode == "lstm":
                     value[h:2 * h] = self._forget_bias
         arr[:] = cell.pack_weights(args)["parameters"]
+
+
+@registry.register
+class Load:
+    """Parameters from a saved dict (or a params file of either package):
+    each name found there is copied (``arg:``/``aux:`` prefixes dropped,
+    shapes must agree), any other goes to ``default_init``, else
+    raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .ndarray import load
+
+            param = load(param)
+        self.param = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise ValueError("Load: shape mismatch for %s" % name)
+            arr[:] = src
+        elif self.default_init is not None:
+            self.default_init(name, arr)
+        else:
+            raise ValueError("Load: no init for %s" % name)
+
+
+@registry.register
+class Mixed:
+    """The initializer of the first of ``patterns`` (regular expressions,
+    matched at the start of the name) that matches a parameter."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("Mixed: %d patterns for %d initializers"
+                             % (len(patterns), len(initializers)))
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise ValueError("Mixed: no pattern matches %s" % name)
 
 
 def create(name, **kwargs):

@@ -1,6 +1,7 @@
 """Data iterators (counterpart of ``mxnet_tpu/io.py``): :class:`DataDesc`,
 :class:`DataBatch`, :class:`DataIter`, :class:`NDArrayIter`,
-:class:`PrefetchingIter` and :class:`DevicePrefetchIter`.
+:class:`MNISTIter`, :class:`PrefetchingIter` and
+:class:`DevicePrefetchIter`.
 
 Batches are NDArrays on the host; ``Module`` copies each onto its device,
 unless a :class:`DevicePrefetchIter` (``fit(prefetch_to_device=True)``)
@@ -14,6 +15,8 @@ middle of an epoch.
 from __future__ import annotations
 
 import contextlib
+import gzip
+import struct
 import threading
 
 import numpy as np
@@ -24,7 +27,7 @@ from .context import Context, cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "PrefetchingIter", "DevicePrefetchIter"]
+           "MNISTIter", "PrefetchingIter", "DevicePrefetchIter"]
 
 
 class DataDesc:
@@ -239,6 +242,65 @@ class NDArrayIter(DataIter):
                 % (state.get("num_data"), state.get("batch_size"),
                    self.num_data, self.batch_size))
         self.cursor = int(state["cursor"])
+
+
+def _read_idx(path):
+    """An MNIST idx file (raw, or gzipped when the name ends in ``.gz``)
+    as a uint8 array of its dims (``src/io/iter_mnist.cc``'s format)."""
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+class MNISTIter(DataIter):
+    """MNIST idx files as batches, the JAX package's ``MNISTIter``
+    (reference ``src/io/iter_mnist.cc:241``): pixels scaled by 1/255,
+    shuffled once by ``RandomState(seed)`` when ``shuffle``, cut to part
+    ``part_index`` of ``num_parts`` equal parts, ``(N, 1, H, W)`` images
+    (``(N, H*W)`` with ``flat``), the ragged last batch discarded."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, seed=0, silent=False,
+                 num_parts=1, part_index=0, **kwargs):
+        super().__init__(batch_size)
+        img = _read_idx(image).astype(np.float32) / 255.0
+        lab = _read_idx(label).astype(np.float32)
+        if shuffle:
+            idx = np.random.RandomState(seed).permutation(img.shape[0])
+            img, lab = img[idx], lab[idx]
+        n = img.shape[0] // num_parts
+        img = img[part_index * n:(part_index + 1) * n]
+        lab = lab[part_index * n:(part_index + 1) * n]
+        img = img.reshape(img.shape[0], -1) if flat \
+            else img.reshape(img.shape[0], 1, img.shape[1], img.shape[2])
+        self._inner = NDArrayIter(
+            {"data": img}, {"softmax_label": lab}, batch_size,
+            shuffle=False, last_batch_handle="discard")
+
+    provide_data = property(lambda s: s._inner.provide_data)
+    provide_label = property(lambda s: s._inner.provide_label)
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+    def iter_next(self):
+        return self._inner.iter_next()
+
+    def state_dict(self):
+        return {"type": "MNISTIter", "inner": self._inner.state_dict()}
+
+    def load_state_dict(self, state):
+        if state.get("type", "MNISTIter") != "MNISTIter":
+            raise MXNetError("iterator state of type %r cannot restore "
+                             "onto MNISTIter" % (state.get("type"),))
+        self._inner.load_state_dict(state["inner"])
 
 
 class PrefetchingIter(DataIter):

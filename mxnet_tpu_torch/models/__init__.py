@@ -1,11 +1,17 @@
 """Model definitions built through ``mxnet_tpu_torch.symbol``."""
 
-from . import lstm_lm, resnet
+from . import inception_v3, lenet, lstm_lm, mlp, resnet
 from .long_context_lm import build_lm, copy_task
 
-__all__ = ["build_lm", "copy_task", "get_symbol", "lstm_lm", "resnet"]
+__all__ = ["build_lm", "copy_task", "get_symbol", "inception_v3", "lenet",
+           "lstm_lm", "mlp", "resnet"]
 
-_BUILDERS = {"resnet": resnet.get_symbol}
+_BUILDERS = {
+    "lenet": lenet.get_symbol,
+    "mlp": mlp.get_symbol,
+    "resnet": resnet.get_symbol,
+    "inception-v3": inception_v3.get_symbol,
+}
 
 
 def get_symbol(network, num_classes=1000, **kwargs):

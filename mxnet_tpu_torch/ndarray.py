@@ -6,7 +6,8 @@ reserved, vector<NDArray> [u32 ndim + u32 dims, Context (i32 type, i32
 id), i32 dtype flag, raw bytes], vector<string> names), byte-compatible in
 both directions with ``mxnet_tpu.ndarray.save``/``load``.  An NDArray
 pickles as the JAX package's does (``{"data", "ctx_type", "ctx_id"}``),
-which the optimizer-state files use.
+which the optimizer-state files use.  ``nd.<op>`` runs a registered op
+imperatively (``nd.concat(a, b, dim=0)``).
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ from __future__ import annotations
 import io
 import os
 import struct
+import sys
 
 import numpy as np
 import torch
 
 from .base import MXNetError
 from .context import Context, cpu, current_context
+from .ops import registry as _reg
 from .ops.registry import torch_dtype
 
 __all__ = ["NDArray", "array", "zeros", "save", "load", "save_bytes"]
@@ -244,3 +247,73 @@ def load(fname):
     if not names:
         return arrays if arrays else {}
     return dict(zip(names, arrays))
+
+
+# -- imperative op functions (``nd.<op>``) -----------------------------------
+def _invoke(op, args, kwargs):
+    """Run ``op`` on NDArrays now, as the JAX package's ``nd.<op>`` does:
+    positional NDArray (or numpy) arguments, then the keyword ones named
+    after inputs, fill the op's inputs in declaration order, other keyword
+    values are its params; a variadic op's count (Concat's ``num_args``)
+    is the number of inputs when omitted; auxiliary states an op updates
+    are written back."""
+    kwargs.pop("name", None)
+
+    def is_tensor(v):
+        return isinstance(v, (NDArray, np.ndarray))
+
+    named = {k: v for k, v in kwargs.items() if is_tensor(v)}
+    attr_kwargs = {k: v for k, v in kwargs.items() if not is_tensor(v)}
+    if not all(is_tensor(a) for a in args):
+        raise MXNetError("%s: positional arguments must be arrays; pass "
+                         "params by name" % op.name)
+    if op.key_var_num_args and op.key_var_num_args not in attr_kwargs:
+        attr_kwargs[op.key_var_num_args] = len(args) + len(named)
+    attrs = op.canonicalize_attrs(attr_kwargs)
+    it = iter(args)
+    slots = []
+    for group in (op.list_arguments(attrs), op.list_aux_states(attrs)):
+        taken = []
+        for nm in group:
+            v = named.pop(nm, None)
+            if v is None:
+                v = next(it, None)
+            if v is None:
+                raise MXNetError("%s: missing input %r" % (op.name, nm))
+            taken.append(v)
+        slots.append(taken)
+    if named or next(it, None) is not None:
+        raise MXNetError("%s: surplus inputs %s" % (op.name, sorted(named)))
+    dev = next((v._t.device for v in slots[0] + slots[1]
+                if isinstance(v, NDArray)), torch.device("cpu"))
+    inputs, aux = ([v if isinstance(v, NDArray)
+                    else NDArray(torch.from_numpy(np.array(v)).to(dev))
+                    for v in group] for group in slots)
+    with torch.no_grad():
+        outs, new_aux = op.apply_with_aux(attrs, [v._t for v in inputs],
+                                          [v._t for v in aux], True)
+    for arr, new in zip(aux, new_aux or ()):
+        arr._t = new
+    results = [NDArray(o) for o in outs]
+    return results[0] if len(results) == 1 else results
+
+
+def _make_op_func(op_name):
+    op = _reg.get(op_name)
+
+    def fn(*args, **kwargs):
+        return _invoke(op, args, kwargs)
+
+    fn.__name__ = op_name
+    fn.__doc__ = "Imperative op %r" % op_name
+    return fn
+
+
+def _init_ndarray_module():
+    mod = sys.modules[__name__]
+    for op_name in _reg.list_ops():
+        if not hasattr(mod, op_name):
+            setattr(mod, op_name, _make_op_func(op_name))
+
+
+_init_ndarray_module()

@@ -118,7 +118,7 @@ def _mha(attrs, ins, dts, auxs):
     return ins, auxs
 
 
-def _reshape_from_output(attrs, out_shape):
+def _reshape_from_output(attrs, out_shape, in_shapes):
     """A Reshape whose output shape is fixed but whose input is unknown
     takes the output shape as its input shape, when the codes map that
     shape onto itself.  This is how ``softmax_label`` behind
@@ -135,10 +135,30 @@ def _reshape_from_output(attrs, out_shape):
     if -1 in got:
         got = tuple(math.prod(out_shape) // known if d == -1 else d
                     for d in got)
-    return tuple(out_shape) if got == tuple(out_shape) else None
+    return [tuple(out_shape)] if got == tuple(out_shape) else None
 
 
 get("Reshape").infer_from_output = _reshape_from_output
+
+
+def _concat_from_output(attrs, out_shape, in_shapes):
+    """A Concat whose output shape is fixed and whose inputs are all known
+    but one: that one takes the output's shape with the rest of the
+    ``dim`` extent (the reference's ConcatShape fills it the same way)."""
+    unknown = [i for i, s in enumerate(in_shapes) if s is None]
+    if len(unknown) != 1:
+        return None
+    dim = attrs["dim"] % len(out_shape)
+    rest = out_shape[dim] - sum(s[dim] for s in in_shapes if s is not None)
+    if rest <= 0:
+        return None
+    shapes = list(in_shapes)
+    shapes[unknown[0]] = tuple(out_shape[:dim]) + (rest,) \
+        + tuple(out_shape[dim + 1:])
+    return shapes
+
+
+get("Concat").infer_from_output = _concat_from_output
 
 
 @rule("elemwise_add")

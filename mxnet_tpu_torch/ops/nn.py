@@ -1,6 +1,6 @@
 """Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``): ``FullyConnected``,
-``Activation``, ``Convolution``, ``Pooling``, ``BatchNorm``, ``Dropout``
-and ``SliceChannel``.
+``Activation``, ``Convolution``, ``Pooling``, ``BatchNorm``, ``Dropout``,
+``Concat`` and ``SliceChannel``.
 
 FullyConnected, Activation, Convolution and Pooling are plain ``torch``
 calls in f32: the JAX package leaves them to XLA, outside any Pallas
@@ -220,6 +220,18 @@ def _dropout(attrs, inputs, aux, is_train):
 
 
 register("Dropout", _dropout, params={"p": (pfloat, 0.5)}, hint="dropout")
+
+
+def _concat(attrs, inputs, aux, is_train):
+    return [torch.cat(inputs, dim=attrs["dim"])]
+
+
+# variadic: num_args counts the inputs arg0..argN-1 (filled from the
+# positional inputs by sym.Concat and nd.concat when omitted)
+register("Concat", _concat,
+         arguments=lambda a: ["arg%d" % i for i in range(a["num_args"])],
+         params={"num_args": (pint, REQUIRED), "dim": (pint, 1)},
+         key_var_num_args="num_args", aliases=("concat",), hint="concat")
 
 
 def _slice_channel(attrs, inputs, aux, is_train):

@@ -92,7 +92,7 @@ def _as_fn(x):
 class OpDef:
     def __init__(self, name, apply_fn, *, arguments=("data",), aux_states=(),
                  outputs=("output",), params=None, hint=None,
-                 updates_aux=False):
+                 updates_aux=False, key_var_num_args=None):
         self.name = name
         self._apply = apply_fn
         #: apply_fn returns (outputs, new aux values or None)
@@ -102,11 +102,15 @@ class OpDef:
         self._outputs = _as_fn(outputs)
         self.params = params or {}
         self.hint = hint or name.lower().lstrip("_")
+        #: the attr that counts a variadic op's inputs (Concat's
+        #: ``num_args``), filled from the positional inputs when omitted
+        self.key_var_num_args = key_var_num_args
         #: optional backward shape rule, attached by ops/infer.py:
         #: (attrs, in_shapes, in_dtypes, aux_shapes) -> (in_shapes, aux_shapes)
         self.infer_inputs = None
-        #: optional reverse rule for a one-input op whose output shape a
-        #: consumer's rule fixed: (attrs, out_shape) -> in_shape or None
+        #: optional reverse rule for an op whose output shape a consumer's
+        #: rule fixed: (attrs, out_shape, in_shapes) -> in_shapes or None,
+        #: ``in_shapes`` holding None where an input is unknown
         self.infer_from_output = None
 
     def list_arguments(self, attrs):

@@ -1,7 +1,10 @@
 """Optimizers (``mx.optimizer``), counterpart of ``mxnet_tpu/optimizer.py``:
 the :class:`Optimizer` base with lr/wd multipliers and update-count driven
-scheduling, :class:`SGD`, :class:`Adam`, :func:`create`, :class:`Updater`
-and :func:`get_updater`.
+scheduling, :class:`SGD`, :class:`Adam`, the rest of the JAX package's
+(:class:`NAG`, :class:`DCASGD`, :class:`SGLD`, :class:`ccSGD`,
+:class:`AdaGrad`, :class:`RMSProp`, :class:`AdaDelta`, :class:`Test`:
+its arithmetic in its order, in place, on the weights' device),
+:func:`create`, :class:`Updater` and :func:`get_updater`.
 
 The SGD step is the JAX package's ``sgd_step_math``
 (``mxnet_tpu/executor.py:414-429``), here over lists of tensors with
@@ -37,8 +40,11 @@ import torch
 
 from .base import MXNetError, Registry
 from .ndarray import NDArray, zeros
+from .random import get_seed
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "Updater",
+__all__ = ["Optimizer", "SGD", "NAG", "DCASGD", "SGLD", "ccSGD", "Adam",
+           "AdaGrad", "RMSProp", "AdaDelta", "Test", "create", "register",
+           "Updater",
            "get_updater", "sgd_step_math", "lr_wd_groups",
            "hyper_tensor", "dumps_states", "load_states", "state_arrays",
            "map_state"]
@@ -230,6 +236,225 @@ class Adam(Optimizer):
             mean.copy_(b1 * mean + (1 - b1) * g)
             var.copy_(b2 * var + (1 - b2) * torch.square(g))
             weight._t.sub_(lr * mean / (torch.sqrt(var) + self.epsilon))
+
+
+def _scaled_grad(opt, grad):
+    """``grad * rescale_grad``, clipped to ``[-clip, clip]`` whenever
+    ``clip_gradient`` is set (the NDArray-arithmetic optimizers of the JAX
+    package clip at any value; its fused ops only above 0)."""
+    g = grad._t * opt.rescale_grad
+    if opt.clip_gradient is not None:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return g
+
+
+def _prep(opt, grad, weight, wd):
+    """The JAX package's fused-op ``_prep``: rescale, clip above 0, then
+    ``+ wd * weight``."""
+    g = grad._t * opt.rescale_grad
+    if opt.clip_gradient is not None and opt.clip_gradient > 0:
+        g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+    return g + wd * weight._t
+
+
+@register
+class NAG(SGD):
+    """Nesterov momentum (``mxnet_tpu/optimizer.py`` NAG): ``m = momentum
+    * m + g + wd * w``, ``w -= lr * (g + wd * w + momentum * m)``."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._t
+        with torch.no_grad():
+            g = _scaled_grad(self, grad)
+            if state is not None:
+                mom = state._t
+                mom.mul_(self.momentum)
+                g += wd * w
+                mom += g
+                g += self.momentum * mom
+                w += -lr * g
+            else:
+                w += -lr * (g + wd * w)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD (``mxnet_tpu/optimizer.py`` DCASGD).  Its
+    state is ``(momentum or None, the weight of the last update)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (zeros(weight.shape, weight.context), weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mon, previous = state
+        w = weight._t
+        with torch.no_grad():
+            g = _scaled_grad(self, grad)
+            delay = g + self.lamda * g * g * (w - previous._t)
+            step = -lr * (delay + wd * w)
+            if mon is not None:
+                mon._t.mul_(self.momentum)
+                mon._t += step
+                step = mon._t
+            previous._t.copy_(w)
+            w += step
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (``mxnet_tpu/optimizer.py``
+    SGLD): ``w += -lr / 2 * (g + wd * w) + N(0, lr)``.  The noise is drawn
+    on the CPU from ``generator`` (by default one seeded with
+    ``mx.random``'s seed when the optimizer is made) and copied to the
+    weight's device, so a seed gives the same noise on every device; it
+    never matches the JAX package's threefry draws."""
+
+    def __init__(self, generator=None, **kwargs):
+        super().__init__(**kwargs)
+        if generator is None:
+            generator = torch.Generator().manual_seed(get_seed())
+        self.generator = generator
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._t
+        noise = torch.empty(w.shape, dtype=w.dtype).normal_(
+            0.0, math.sqrt(lr), generator=self.generator).to(w.device)
+        with torch.no_grad():
+            g = _scaled_grad(self, grad)
+            w += (-lr / 2) * (g + wd * w) + noise
+
+
+@register
+class ccSGD(SGD):
+    """The reference's C-side SGD: the same update as :class:`SGD`."""
+
+
+@register
+class AdaGrad(Optimizer):
+    """``mxnet_tpu/optimizer.py`` AdaGrad: ``h += g^2``, ``w -= lr * (g /
+    sqrt(h + eps) + wd * w)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w, history = weight._t, state._t
+        with torch.no_grad():
+            g = _scaled_grad(self, grad)
+            history += g * g
+            w += -lr * (g / torch.sqrt(history + self.float_stable_eps)
+                        + wd * w)
+
+
+@register
+class RMSProp(Optimizer):
+    """``mxnet_tpu/optimizer.py`` RMSProp with the arithmetic of its
+    ``rmsprop_update`` op (state ``(n,)``) or, with ``centered=True``,
+    of ``rmspropalex_update`` (Graves 2013; state ``(n, g, delta)``)
+    (``mxnet_tpu/ops/optimizer_op.py``); ``clip_weights`` above 0 clips
+    the updated weight."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (zeros(weight.shape, weight.context),
+                    zeros(weight.shape, weight.context),
+                    zeros(weight.shape, weight.context))
+        return (zeros(weight.shape, weight.context),)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g1, w = self.gamma1, weight._t
+        with torch.no_grad():
+            g = _prep(self, grad, weight, wd)
+            n = state[0]._t
+            n.copy_((1 - g1) * torch.square(g) + g1 * n)
+            if not self.centered:
+                new_w = w - lr * g / torch.sqrt(n + self.epsilon)
+            else:
+                gs, delta = state[1]._t, state[2]._t
+                gs.copy_((1 - g1) * g + g1 * gs)
+                delta.copy_(self.gamma2 * delta - lr * g / torch.sqrt(
+                    n - torch.square(gs) + self.epsilon))
+                new_w = w + delta
+            cw = self.clip_weights
+            if cw is not None and cw > 0:
+                new_w = torch.clamp(new_w, -cw, cw)
+            w.copy_(new_w)
+
+
+@register
+class AdaDelta(Optimizer):
+    """``mxnet_tpu/optimizer.py`` AdaDelta (no learning rate):
+    ``acc_g = rho * acc_g + (1 - rho) * g^2``, ``d = sqrt(acc_delta +
+    eps) / sqrt(acc_g + eps) * g``, ``acc_delta = rho * acc_delta + (1 -
+    rho) * d^2``, ``w -= d + wd * w``."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        acc_g, acc_delta = (s._t for s in state)
+        w = weight._t
+        with torch.no_grad():
+            g = _scaled_grad(self, grad)
+            acc_g *= self.rho
+            acc_g += (1.0 - self.rho) * g * g
+            delta = (torch.sqrt(acc_delta + self.epsilon)
+                     / torch.sqrt(acc_g + self.epsilon)) * g
+            acc_delta *= self.rho
+            acc_delta += (1.0 - self.rho) * delta * delta
+            w -= delta + wd * w
+
+
+@register
+class Test(Optimizer):
+    """``mxnet_tpu/optimizer.py`` Test: ``w += rescale * g``, the state a
+    copy of the new weight (no update count)."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight._t += grad._t * self.rescale_grad
+            state._t.copy_(weight._t)
 
 
 def state_arrays(state):

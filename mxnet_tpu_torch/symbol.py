@@ -117,20 +117,24 @@ def _infer_sweep(nodes, var_shape, var_dtype, expected):
     return entry, missing
 
 
-def _reverse_fill(nodes, var_shape, expected):
-    """Give an unknown variable feeding a one-input op the input shape the
-    op's reverse rule derives from its expected output shape.  True when
-    a variable shape was filled (another sweep can then go further)."""
+def _reverse_fill(nodes, var_shape, expected, entry):
+    """Give unknown variables feeding an op the input shapes the op's
+    reverse rule derives from its expected output shape and its known
+    inputs.  True when a variable shape was filled (another sweep can
+    then go further)."""
     filled = False
     for node in reversed(nodes):
         want = expected.get((id(node), 0))
         if node.is_variable or want is None \
                 or node.op.infer_from_output is None:
             continue
-        child, _ci = node.inputs[0]
-        if child.is_variable and var_shape.get(child.name) is None:
-            s = node.op.infer_from_output(node.attrs, want)
-            if s is not None:
+        ins = node.inputs[:node.num_args()]
+        known = [None if (id(c), ci) not in entry
+                 else tuple(entry[(id(c), ci)].shape) for c, ci in ins]
+        shapes = node.op.infer_from_output(node.attrs, want, known)
+        for (child, _ci), s in zip(ins, shapes or ()):
+            if s is not None and child.is_variable \
+                    and var_shape.get(child.name) is None:
                 var_shape[child.name] = tuple(s)
                 filled = True
     return filled
@@ -248,7 +252,8 @@ class Symbol:
         while True:
             entry, missing = _infer_sweep(nodes, var_shape, var_dtype,
                                           expected)
-            if not missing or not _reverse_fill(nodes, var_shape, expected):
+            if not missing or not _reverse_fill(nodes, var_shape, expected,
+                                                 entry):
                 break
         if missing:
             node, names = missing[0]
@@ -374,6 +379,8 @@ def _compose(op, args, kwargs):
     for a in args:
         if not isinstance(a, Symbol):
             raise MXNetError("%s: positional args must be Symbols" % op.name)
+    if op.key_var_num_args and op.key_var_num_args not in attr_kwargs:
+        attr_kwargs[op.key_var_num_args] = len(args) + len(sym_kwargs)
     attrs = op.canonicalize_attrs(attr_kwargs)
     name = NameManager.current().get(name, op.hint)
     inputs = []

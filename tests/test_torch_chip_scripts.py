@@ -111,3 +111,41 @@ def test_ptxas_report_reads_registers_and_spills_per_kernel():
                  else "")
     report = _script("chip_smoke").ptxas_report(kernels, "flash_attention")
     assert report == {"_Z3fwdv": (191, 0, 0), "_Z3bwdv": (255, 12, 28)}
+
+
+def test_bn_configs_read_from_the_graphs():
+    """Phase 4's inputs: ResNet-50's 51 BatchNorms at 13 shapes and
+    Inception-v3's 94 at 18, each Inception one fix_gamma with its ReLU
+    fused (the executor's peephole), at b128."""
+    import mxnet_tpu_torch as mx
+
+    smoke = _script("chip_smoke")
+    resnet = smoke.resnet_bn_configs(mx, smoke.TRAIN_BATCH)
+    assert (len(resnet), sum(resnet.values())) == (13, 51)
+    inception = smoke.inception_bn_configs(mx, smoke.TRAIN_BATCH)
+    assert (len(inception), sum(inception.values())) == \
+        (18, smoke.INCEPTION_BNS)
+    assert all(fix_gamma and relu for _s, fix_gamma, relu in inception)
+    sides = {shape[2] for shape, _g, _r in inception}
+    assert sides == {149, 147, 73, 71, 35, 17, 8}
+
+
+def test_mnist_fit_helper_runs_on_the_cpu(tmp_path):
+    """Phase 14's fit helper over the synthetic idx files, on the CPU: the
+    MLP learns, a perturbed training set is still a valid one, and an
+    optimizer of common/fit.py other than SGD runs through it."""
+    import mxnet_tpu_torch as mx
+
+    smoke = _script("chip_smoke")
+    paths = mx.models.lenet.synth_mnist(str(tmp_path), num_train=256,
+                                        num_val=128)
+    _s, acc, metrics, _mod = smoke.mnist_fit(mx, "mlp", paths, mx.cpu(), 0)
+    assert acc == 1.0 and metrics["accuracy"] > 0.5
+    _s, acc2, _m, _mod = smoke.mnist_fit(mx, "mlp", paths, mx.cpu(), 0,
+                                         perturb=(1e-7, 1))
+    assert acc2 == 1.0
+    name, params = smoke.MNIST_OPTIMIZERS[0]
+    _s, _a, metrics, mod = smoke.mnist_fit(mx, "lenet", paths, mx.cpu(), 0,
+                                           1, name, params)
+    assert type(mod._optimizer).__name__ == "NAG"
+    assert metrics["cross-entropy"] == metrics["cross-entropy"]  # not NaN

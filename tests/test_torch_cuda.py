@@ -343,6 +343,14 @@ def _assert_close_scaled(got, want, tol=1e-4):
     # chunked, then both chunked
     ((129, 4, 56, 56), False, True, 0.0),
     ((257, 2, 56, 56), False, True, 0.0),
+    # Inception-v3's odd spatial sizes at N = 128 (fix_gamma, ReLU fused):
+    # 35x35 on 4-CTA (K1) and 7-CTA (K2) clusters of 4-byte copies, 71x71
+    # and 73x73 on 13- and 15-CTA clusters (K1; K2 chunked), 149x149
+    # chunked in both
+    ((128, 4, 35, 35), True, True, 0.0),
+    ((128, 3, 71, 71), True, True, 0.0),
+    ((128, 3, 73, 73), True, True, 0.0),
+    ((128, 2, 149, 149), True, True, 0.0),
 ])
 def test_bn_kernels_match_plain(cuda_device, shape, fix_gamma, relu, offset):
     rs = np.random.RandomState(4)
@@ -450,6 +458,31 @@ def test_bn_plan(cuda_device):
         == "chunked"
     small = bn_kernel.bn_plan(8, 2112, 16, True, cuda_device)
     assert small["path"] == "resident" and small["channels_per_cta"] > 1
+
+
+#: Inception-v3's BatchNorm spatial sizes at N = 128 and the clusters
+#: (K1, K2) their plans take (None: the chunked path)
+_INCEPTION_PLANS = {149: (None, None), 147: (None, None), 73: (15, None),
+                    71: (13, None), 35: (4, 7), 17: (1, 2), 8: (1, 1)}
+
+
+@pytest.mark.cuda
+def test_bn_plan_inception(cuda_device):
+    """Every BatchNorm spatial size of the Inception-v3 b128 step takes
+    the path and the cluster its strip size gives (at most 200 KiB a CTA,
+    at most 16 CTAs a cluster), and the card holds at least one cluster
+    of each, the 13- and 15-CTA clusters of 187-196 KB CTAs included."""
+    for side, want in _INCEPTION_PLANS.items():
+        for bwd in (False, True):
+            plan = bn_kernel.bn_plan(128, 64, side * side, bwd, cuda_device)
+            k = want[bwd]
+            assert plan["path"] == ("chunked" if k is None else "resident"), \
+                (side, bwd, plan)
+            if k is not None:
+                assert plan["ctas_per_cluster"] == k, (side, bwd, plan)
+                assert plan["strips_per_cta"] == -(-128 // k)
+                assert plan["smem_bytes"] <= 200 * 1024
+            assert plan["active_clusters"] > 0, (side, bwd, plan)
 
 
 def _resnet50_step(net, ctx, x, y):
@@ -1258,3 +1291,31 @@ def test_adam_checkpoint_reloads_onto_the_card(cuda_device, tmp_path):
     for i, (mean, var) in other._updater.states.items():
         assert mean._t.device == cuda_device
         assert not np.array_equal(var.asnumpy(), saved[i][1])
+
+
+@pytest.mark.cuda
+def test_inception_v3_step_launches_k1_and_k2_94_times(cuda_device):
+    """One Module step of full-width Inception-v3 (batch 8, 3x299x299) on
+    the card: 94 BatchNorms, each fix_gamma with a ReLU fused, each one K1
+    and one K2 launch; the step matches the CPU's within 3x the floor of
+    three perturbed CPU steps, the moving statistics at ``rtol=1e-4,
+    atol=1e-5`` (as the ResNet-50 step)."""
+    net = mx.models.get_symbol("inception-v3", num_classes=1000)
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-1, 1, (8, 3, 299, 299)).astype(np.float32)
+    y = rs.randint(0, 1000, 8).astype(np.float32)
+    gu, gaux, glaunch = _resnet50_step(net, mx.gpu(0), x, y)
+    cu, caux, claunch = _resnet50_step(net, mx.cpu(), x, y)
+    assert glaunch == (94, 94) and claunch == (0, 0)
+
+    def dists(a, b):
+        return np.array([np.linalg.norm(a[k] - b[k]) for k in sorted(cu)])
+
+    floor = np.max([dists(_resnet50_step(net, mx.cpu(), (x * (
+        1 + 1e-7 * rs.standard_normal(x.shape))).astype(np.float32), y)[0],
+        cu) for _ in range(3)], axis=0)
+    ratio = dists(gu, cu) / np.maximum(floor, 1e-30)
+    assert ratio.max() <= 3, (sorted(cu)[int(ratio.argmax())], ratio.max())
+    for k in caux:
+        np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)

@@ -30,7 +30,9 @@ def test_import_loads_no_jax_and_no_mxnet_tpu():
             "mxnet_tpu_torch.module.module, "
             "mxnet_tpu_torch.module.base_module, "
             "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.random, "
-            "mxnet_tpu_torch.rnn.rnn\n"
+            "mxnet_tpu_torch.rnn.rnn, mxnet_tpu_torch.models.inception_v3, "
+            "mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp, "
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
