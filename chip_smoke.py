@@ -195,7 +195,42 @@
    epoch of LeNet on the card with each other optimizer of
    ``common/fit.py`` (NAG, DCASGD, SGLD, ccSGD, AdaGrad, RMSProp plain
    and centered, AdaDelta, Test): a finite loss and finite parameters.
-15. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
+15. Decode phase (the LM-serving stack of
+   ``example/serving/serve_lm.py``): ``models.transformer_lm`` at GPT-2
+   medium's published widths (vocab 50257, embed 1024, 16 heads of 64, 24
+   layers, ffn 4096, max_len 1024; Radford et al. 2019, Table 2, the 345M
+   row), f32, weights from ``init_params(seed=--seed)``, eos unreachable.
+   ``lm_pool`` of two ``DecodeEngine`` replicas on the card (32 slots,
+   prefill buckets 64-512) -> ``ModelRegistry.register`` ->
+   ``ServingHTTPServer``, and 96 concurrent HTTP clients drawn from
+   ``--seed`` (prompts of 16-480 tokens, half sharing one 256-token
+   prefix, 128 new tokens each, half greedy and half at temperature 0.8,
+   a quarter streamed).  Runs: A dense; B paged (blocks of 16, prefix
+   cache; then one shared prompt twice in a row, whose second admission
+   copies a partial block on write); C dense with one replica's step
+   raising midway, at its step 112 (the pool migrates its sessions, the
+   longest past the largest prefill bucket, which re-prefill at max_len;
+   the breaker opens, the replica re-warms, goes half-open and closes on
+   a probe); D dense with ``register`` of a second pool on the same
+   params at step 112 (stragglers finish there).  C and D must each have
+   migrated a transcript past the largest bucket.  Every request must
+   end with its 128 tokens, none shed.  The token rule (streams equal up
+   to the first position where the reference's top-2 margin is under
+   2e-5 of its largest magnitude, ten times the step's measured error)
+   holds each stream of A to the argmax of its teacher-forced forward
+   (greedy: the logits; at a temperature: the logits over t plus the
+   session's own Gumbel noise), and B, C and D to A; B must also equal A
+   in full.  Then one step of 32 slots dense against paged and against
+   the forward, one prefill and three steps on the card against the CPU
+   (1e-4 of the largest logit), and per layout a dedicated engine with
+   every slot busy: the step's device ms (the kernels' busy time in a
+   profile of 20 steps, which must hold exactly 20 device-to-host copies,
+   the packed buffers, and no other sync), its wall time on the stream
+   (CUDA events) and host ms, the step's byte bound, the step by kernel
+   group, and the prefill ms per bucket (device and wall).  Every state
+   tensor of every replica must lie on the card.  The phase prints its
+   time by part.
+16. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
    name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
@@ -3077,6 +3112,836 @@ def mnist_phase(mx, seed):
                                    "parameters %s" % (name, m, finite))
 
 
+# -- the decode tier: LM serving over HTTP (phase 15) -------------------------
+#: transformer_lm at GPT-2 medium's published widths (Radford et al. 2019,
+#: Table 2, the 345M row; n_embd/n_head/n_layer/n_ctx of OpenAI's released
+#: hparams.json); eos_id = vocab is unreachable, so lengths are exact
+DECODE_WIDTHS = dict(vocab=50257, embed=1024, heads=16, layers=24, ffn=4096,
+                     max_len=1024)
+DECODE_SLOTS, DECODE_BUCKETS, DECODE_QUEUE = 32, (64, 128, 256, 512), 512
+DECODE_REPLICAS, DECODE_BLOCK = 2, 16
+DECODE_CLIENTS, DECODE_NEW, DECODE_PREFIX = 96, 128, 256
+DECODE_PROMPT, DECODE_TEMP = (16, 480), 0.8
+#: the step of one replica at which the failover run's step raises and
+#: the swap run re-registers: midway through a replica's ~255 steps, when
+#: its first 32 sessions hold ~113 of their 128 tokens, so the longest
+#: migrated transcripts (prompts reach 480 tokens) outgrow the largest
+#: prefill bucket (512) and re-prefill at max_len
+DECODE_EVENT_STEP = 112
+#: the token rule's near-tie margin, relative to the largest |score|: ten
+#: times the step's measured distance from the teacher-forced forward and
+#: from the CPU (2.0e-6 and 2.05e-6 of the largest |logit| on the H100)
+TOKEN_RULE_MARGIN = 2e-5
+#: decode steps in the profiled window
+DECODE_PROFILE_STEPS = 20
+
+
+def decode_traffic(seed, clients, vocab):
+    """The phase's requests, drawn from ``seed`` before any client
+    starts: prompt lengths uniform in ``DECODE_PROMPT``; half the clients
+    share one ``DECODE_PREFIX``-token prefix (a system prompt) and draw
+    their length above it; half greedy, half at ``DECODE_TEMP``; a
+    quarter streamed; a sampling seed each."""
+    rs = np.random.RandomState(seed + 15)
+    lo, hi = DECODE_PROMPT
+    prefix_len = DECODE_PREFIX
+    prefix = rs.randint(0, vocab, prefix_len)
+    roles = rs.permutation(clients)
+    out = []
+    for i in range(clients):
+        r = int(roles[i])
+        shared = r < clients // 2
+        n = rs.randint(max(lo, prefix_len + 1) if shared else lo, hi + 1)
+        tail = rs.randint(0, vocab, n - (prefix_len if shared else 0))
+        prompt = np.concatenate([prefix, tail]) if shared else tail
+        out.append({"prompt": [int(t) for t in prompt],
+                    "max_new_tokens": DECODE_NEW,
+                    "temperature": 0.0 if r % 2 == 0 else DECODE_TEMP,
+                    "stream": (r // 2) % 4 == 0,
+                    "seed": int(rs.randint(0, 1 << 31)),
+                    "shared": bool(shared)})
+    return out
+
+
+def token_rule(got, want, gap, scale, margin=TOKEN_RULE_MARGIN):
+    """``got`` and ``want`` agree token for token up to the first
+    position where the reference's top-2 margin ``gap`` is under
+    ``margin`` of its largest magnitude ``scale``.  Returns ``(ok,
+    stop)``: ``stop`` is that near-tie position (None when there is
+    none), or the first disagreeing one when ``ok`` is False."""
+    n = min(len(got), len(want), len(gap))
+    for i in range(n):
+        if gap[i] < margin * scale[i]:
+            return True, i
+        if int(got[i]) != int(want[i]):
+            return False, i
+    if len(got) != len(want):
+        return False, n
+    return True, None
+
+
+def step_bytes(cfg, slots, lengths=None):
+    """Bytes one decode step must move: every weight but the embedding
+    tables (their ``slots`` rows only), the logits written, and the K/V:
+    at the step's fixed shape (each slot's ``max_len`` rows read, one row
+    written) or, given ``lengths``, the rows this data attends (``length
+    + 1`` per slot).  Returns ``(fixed, live)``; ``live`` is None without
+    ``lengths``."""
+    e, f, v, m, l = cfg.embed, cfg.ffn, cfg.vocab, cfg.max_len, cfg.layers
+    weights = l * (2 * e + 3 * e * e + e * e + 2 * e * f) + e * v + e
+    act = 2 * slots * e + slots * v
+    row = 2 * l * e            # one position's K and V over all layers
+    fixed = 4 * (weights + act + slots * m * row + slots * row)
+    live = None if lengths is None else 4 * (
+        weights + act + sum(int(n) + 1 for n in lengths) * row
+        + slots * row)
+    return fixed, live
+
+
+def _decision_rows(tlm_mod, decode_mod, cfg, params, req, tokens):
+    """The reference for one session's ``tokens``: the forward of its
+    transcript, as the decision scores its sampler maximised (logits for
+    greedy; ``logits / t + g`` at a temperature, ``g`` the session's own
+    noise), reduced to ``(argmax, top-2 gap, largest |score|)`` per
+    generated position, plus the forward's logits' largest magnitude."""
+    p0 = len(req["prompt"])
+    n = len(tokens)
+    dev = params["embed"].device
+    ids = np.asarray(req["prompt"] + list(tokens[:-1]), np.int64)[None]
+    with torch.no_grad():
+        lg = tlm_mod.forward_logits(cfg, params, ids)[0, p0 - 1:p0 - 1 + n]
+        t = req["temperature"]
+        if t > 0:
+            g = decode_mod.gumbel_noise(
+                torch.full((n,), req["seed"], dtype=torch.int64,
+                           device=dev),
+                torch.arange(p0, p0 + n, device=dev),
+                torch.arange(cfg.vocab, device=dev))
+            sc = lg / max(t, 1e-6) + g
+        else:
+            sc = lg
+        top = sc.topk(2, dim=-1).values
+        rows = (sc.argmax(-1).cpu().numpy(),
+                (top[:, 0] - top[:, 1]).cpu().numpy(),
+                sc.abs().amax(-1).cpu().numpy())
+    return rows
+
+
+def _http_generate(url, req, timeout=600):
+    """One client: POST /generate (streamed or not) over its own
+    connection; returns the tokens, the server's TTFT, the migrations the
+    summary line reports and the failover lines of a stream."""
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    body = {k: req[k] for k in ("prompt", "max_new_tokens", "temperature",
+                                "stream", "seed")}
+    body["model"] = "lm"
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    try:
+        conn.request("POST", "/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read().decode()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        return {"status": resp.status, "error": data}
+    if not req["stream"]:
+        doc = json.loads(data)
+        return {"status": 200, "tokens": doc["tokens"],
+                "ttft_ms": doc["ttft_ms"], "migrations": None, "events": []}
+    lines = [json.loads(x) for x in data.splitlines() if x.strip()]
+    streamed = [x["token"] for x in lines if "token" in x]
+    events = [x for x in lines if "event" in x]
+    done = lines[-1]
+    if not done.get("done") or done["tokens"] != streamed:
+        return {"status": 200, "error": "stream and summary disagree: %r"
+                % (done,)}
+    return {"status": 200, "tokens": streamed, "ttft_ms": done["ttft_ms"],
+            "migrations": done["migrations"], "events": events}
+
+
+def _shed_total(mx):
+    return mx.telemetry.counter_total("serving.shed.count")
+
+
+def decode_run(mx, url, traffic, label, hook=None):
+    """All clients at once (threads released together); ``hook`` runs in
+    the caller's thread meanwhile.  Fails unless every request ends with
+    its tokens and nothing was shed.  Returns the results in traffic order
+    and the wall seconds."""
+    results = [None] * len(traffic)
+    go = threading.Event()
+
+    def client(i):
+        go.wait()
+        try:
+            results[i] = _http_generate(url, traffic[i])
+        except Exception as e:  # noqa: broad-except — reported below
+            results[i] = {"status": None, "error": repr(e)}
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(traffic))]
+    for t in threads:
+        t.start()
+    shed0 = _shed_total(mx)
+    t0 = time.perf_counter()
+    go.set()
+    if hook is not None:
+        hook()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    bad = [(i, r) for i, r in enumerate(results)
+           if r is None or r.get("error") or len(r["tokens"])
+           != traffic[i]["max_new_tokens"]]
+    if bad:
+        raise RuntimeError("decode %s: %d of %d requests failed, first %r"
+                           % (label, len(bad), len(traffic), bad[0]))
+    shed = _shed_total(mx) - shed0
+    if shed:
+        raise RuntimeError("decode %s: %d sessions shed" % (label, shed))
+    return results, wall
+
+
+def _pool_stats(pool):
+    """Totals over a pool's engines: steps, tokens, admissions."""
+    reps = [r.engine for r in pool.replicas]
+    steps = sum(e.steps for e in reps)
+    tokens = sum(e.tokens_out for e in reps)
+    resumed = sum(e.resumed for e in reps)
+    return steps, tokens, resumed
+
+
+def _gauge_max(mx, name, stop, out):
+    """Samples gauge ``name`` of each replica until ``stop`` is set."""
+    while not stop.wait(0.05):
+        for r in range(DECODE_REPLICAS):
+            v = mx.telemetry.gauge_value(name, model="lm", replica=str(r))
+            if v is not None:
+                out[0] = max(out[0], v)
+
+
+def decode_serving_run(mx, tlm_mod, cfg, params, dev, traffic, layout,
+                       engine_opts, label, hook_factory=None,
+                       pool_opts=None):
+    """One run of the traffic through ``lm_pool`` -> ``register`` ->
+    ``ServingHTTPServer``; prints the run's metrics and returns its
+    results, the registry, server and pool (left open for the caller)."""
+    opts = dict(engine_opts, kv_layout=layout)
+    if layout == "paged":
+        opts["kv_block_size"] = DECODE_BLOCK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    pool = mx.serving.lm_pool(cfg, params, n_replicas=DECODE_REPLICAS,
+                              devices=[dev] * DECODE_REPLICAS,
+                              engine_opts=opts, **(pool_opts or {}))
+    t_build = time.perf_counter() - t_build
+    reg = mx.serving.ModelRegistry(ctx=mx.cpu())
+    reg.register("lm", pool)
+    server = mx.serving.ServingHTTPServer(reg, port=0).start()
+    stop, peak_spg = threading.Event(), [0.0]
+    sampler = threading.Thread(target=_gauge_max, daemon=True, args=(
+        mx, "serving.kv.sessions_per_hbm_gb", stop, peak_spg))
+    sampler.start()
+    hook = hook_factory(pool, reg) if hook_factory else None
+    try:
+        results, wall = decode_run(mx, server.url, traffic, label, hook)
+    finally:
+        stop.set()
+        sampler.join(timeout=5)
+    served = reg.get("lm")
+    steps, tokens, resumed = _pool_stats(pool)
+    if served is not pool:
+        s2, t2, r2 = _pool_stats(served)
+        steps, tokens, resumed = steps + s2, tokens + t2, resumed + r2
+    gen = sum(len(r["tokens"]) for r in results)
+    admissions = len(traffic) + resumed
+    decoded = tokens - admissions
+    ttft = np.array([r["ttft_ms"] for r in results], np.float64)
+    desc = served.describe()
+    kv = desc["kv"] or {}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if layout == "dense":
+        # a dense replica holds its slots' worth of sessions per GiB of
+        # cache at most (the gauge is the paged engines')
+        peak_spg[0] = DECODE_SLOTS / (kv["hbm_bytes"] / DECODE_REPLICAS
+                                      / float(1 << 30))
+    stats = {"wall_s": wall, "tokens_per_s": gen / wall,
+             "ttft_p50_ms": float(np.percentile(ttft, 50)),
+             "ttft_p99_ms": float(np.percentile(ttft, 99)),
+             "steps": steps, "decoded": decoded,
+             "occupancy": decoded / float(max(steps, 1) * DECODE_SLOTS),
+             "seqs_per_step": decoded / float(max(steps, 1)),
+             "peak_gb": peak, "build_s": t_build,
+             "sessions_per_hbm_gb": peak_spg[0],
+             "prefix_hits": kv.get("prefix_hits"),
+             "cow_copies": kv.get("cow_copies"),
+             "failovers": desc.get("failovers")}
+    print("decode %s (%s, %d replicas of %d slots on %s): %d requests x "
+          "%d tokens in %.3f s = %.1f tokens/s; TTFT p50 %.2f ms, p99 %.2f "
+          "ms; %d steps, %d decoded tokens, mean slot occupancy %.3f, %.2f "
+          "sequences a step; peak memory %.3f GB; sessions_per_hbm_gb %.3f "
+          "(a replica's peak); prefix hits %s, COW copies %s; failovers %s; pools "
+          "built in %.2f s"
+          % (label, layout, DECODE_REPLICAS, DECODE_SLOTS, dev,
+             len(traffic), traffic[0]["max_new_tokens"], wall,
+             stats["tokens_per_s"], stats["ttft_p50_ms"],
+             stats["ttft_p99_ms"], steps, decoded, stats["occupancy"],
+             stats["seqs_per_step"], peak,
+             stats["sessions_per_hbm_gb"], stats["prefix_hits"],
+             stats["cow_copies"], stats["failovers"], t_build), flush=True)
+    for eng in (r.engine for r in served.replicas):
+        off = [t.device for t in eng.state_tensors() if t.device != dev]
+        if off:
+            raise RuntimeError("decode %s: replica %s holds tensors on %s"
+                               % (label, eng.replica, off[:3]))
+    return results, stats, (reg, server, pool)
+
+
+def _close(stack):
+    reg, server, _pool = stack
+    server.stop()
+    reg.close()
+
+
+def hold_streams(label, traffic, refs, got, want, what, whole=False):
+    """The token rule over every session: ``got[i]`` against ``want[i]``
+    under the reference rows ``refs[i]``; with ``whole``, every stream
+    must also equal ``want[i]`` in full.  Fails the phase on a
+    disagreement; returns the count of near-tie stops."""
+    ties = held = equal = 0
+    for i, req in enumerate(traffic):
+        best, gap, scale = refs[i]
+        w = best if want is None else want[i]
+        ok, stop = token_rule(got[i], w, gap, scale)
+        held += len(got[i]) if stop is None else stop
+        equal += list(got[i]) == [int(x) for x in w]
+        if not ok:
+            raise RuntimeError(
+                "decode %s: session %d (%s, prompt %d) breaks the token "
+                "rule at generated position %d: %d against %d"
+                % (label, i, "greedy" if req["temperature"] == 0 else
+                   "t=%g" % req["temperature"], len(req["prompt"]), stop,
+                   int(got[i][stop]) if stop < len(got[i]) else -1,
+                   int(w[stop]) if stop < len(w) else -1))
+        ties += stop is not None
+    print("decode %s: %s holds for all %d sessions by the token rule "
+          "(%d stopped at a near tie, margin < %g of the largest |score|; "
+          "%d of %d positions compared before a stop; %d streams equal in "
+          "full)" % (label, what, len(traffic), ties, TOKEN_RULE_MARGIN,
+                     held, sum(len(g) for g in got), equal), flush=True)
+    if whole and equal != len(traffic):
+        raise RuntimeError("decode %s: %d of %d streams differ from the "
+                           "reference in full" % (label, len(traffic) - equal,
+                                                  len(traffic)))
+    return ties
+
+
+def decode_card_vs_cpu(tlm_mod, cfg, params_cpu, params_dev, seed, steps=3,
+                       prompt_len=64):
+    """One prefill and ``steps`` decode steps of the model on the card
+    against the port on the CPU (one slot), each step fed the CPU's
+    argmax: each logits row within 1e-4 of the CPU's largest |logit|."""
+    rs = np.random.RandomState(seed + 151)
+    prompt = rs.randint(0, cfg.vocab, prompt_len).astype(np.int64)
+    hd = cfg.embed // cfg.heads
+    worst = 0.0
+    caches = {}
+    with torch.no_grad():
+        outs = {}
+        for name, p in (("cpu", params_cpu), ("card", params_dev)):
+            dev = p["embed"].device
+            last, ks, vs = tlm_mod.prefill_kv(cfg, p, prompt, prompt_len)
+            shape = (cfg.layers, cfg.heads, 1, cfg.max_len, hd)
+            ck = torch.zeros(shape, device=dev)
+            cv = torch.zeros(shape, device=dev)
+            ck[:, :, 0, :prompt_len] = torch.stack(ks)
+            cv[:, :, 0, :prompt_len] = torch.stack(vs)
+            caches[name] = (ck, cv)
+            outs[name] = last[None]
+        tok = int(outs["cpu"][0].argmax())
+        for i in range(steps + 1):
+            ref = outs["cpu"].float()
+            err = (outs["card"].cpu() - ref).abs().max().item() \
+                / ref.abs().max().item()
+            worst = max(worst, err)
+            if i == steps:
+                break
+            for name, p in (("cpu", params_cpu), ("card", params_dev)):
+                dev = p["embed"].device
+                ck, cv = caches[name]
+                outs[name], _, _ = tlm_mod.decode_step_math(
+                    cfg, p, ck, cv, torch.tensor([tok], device=dev),
+                    torch.tensor([prompt_len + i], device=dev))
+            tok = int(outs["cpu"][0].argmax())
+    print("decode card against CPU: one prefill of %d tokens and %d steps "
+          "at full width, worst logits error %.3e of the CPU's largest "
+          "|logit| (limit 1e-4)" % (prompt_len, steps, worst), flush=True)
+    if not worst <= 1e-4:
+        raise RuntimeError("decode: card and CPU logits differ by %.3e"
+                           % worst)
+    return worst
+
+
+def decode_dense_vs_paged(tlm_mod, cfg, params, traffic, slots):
+    """One decode step of ``slots`` slots, each prefilled with a traffic
+    prompt, through the dense cache and through block tables over a
+    pool: the largest logit difference between the two, and between the
+    step and the teacher-forced forward of the same transcripts."""
+    dev = params["embed"].device
+    hd = cfg.embed // cfg.heads
+    mb = -(-cfg.max_len // DECODE_BLOCK)
+    with torch.no_grad():
+        ck = torch.zeros((cfg.layers, cfg.heads, slots, cfg.max_len, hd),
+                         device=dev)
+        cv = torch.zeros_like(ck)
+        pk = torch.zeros((cfg.layers, cfg.heads, slots * mb + 1,
+                          DECODE_BLOCK, hd), device=dev)
+        pv = torch.zeros_like(pk)
+        tables = (1 + torch.arange(slots * mb, device=dev)).reshape(
+            slots, mb)
+        last_tok, lengths, fwd = [], [], []
+        for s in range(slots):
+            prompt = np.asarray(traffic[s]["prompt"], np.int64)
+            n = len(prompt)
+            last, ks, vs = tlm_mod.prefill_kv(cfg, params, prompt, n)
+            ck[:, :, s, :n] = torch.stack(ks)
+            cv[:, :, s, :n] = torch.stack(vs)
+            tlm_mod.prefill_kv_paged(cfg, params, pk, pv, tables[s], prompt,
+                                     0, n)
+            tok = int(last.argmax())
+            last_tok.append(tok)
+            lengths.append(n)
+            fwd.append(tlm_mod.forward_logits(
+                cfg, params, np.append(prompt, tok)[None])[0, -1])
+        lt = torch.tensor(last_tok, device=dev)
+        ln = torch.tensor(lengths, device=dev)
+        dense, _, _ = tlm_mod.decode_step_math(cfg, params, ck, cv, lt, ln)
+        paged, _, _ = tlm_mod.decode_step_paged(cfg, params, pk, pv, tables,
+                                                lt, ln)
+        fwd = torch.stack(fwd)
+        d_dp = (dense - paged).abs().max().item()
+        d_fwd = (dense - fwd).abs().max().item()
+        scale = fwd.abs().max().item()
+    del ck, cv, pk, pv
+    print("decode one step of %d slots: dense against paged max |logit "
+          "difference| %.3e; step against the teacher-forced forward %.3e "
+          "(%.3e of the largest |logit|)" % (slots, d_dp, d_fwd,
+                                              d_fwd / scale), flush=True)
+    return d_dp, d_fwd / scale
+
+
+def _drive_engine(eng, ticks):
+    """``ticks`` iterations of a non-started engine's loop, driven from
+    this thread (the measurement windows)."""
+    eng._running = True
+    state = eng._boot_state
+    eng._boot_state = None
+    for _ in range(ticks):
+        state = eng._tick(state)
+    eng._boot_state = state
+    eng._running = False
+
+
+def decode_step_profile(mx, decode_mod, cfg, params, dev, traffic, layout):
+    """A dedicated engine with every slot busy (traffic prompts, sessions
+    that outlast the windows): the step's wall time on its stream (CUDA
+    events around the call, which mostly wait on the host's launches),
+    its host enqueue and loop-iteration ms (host clock), its device ms
+    (the kernels' busy time in a profiled window of 20 steps, which must
+    also hold exactly 20 device-to-host copies, the packed buffers, and
+    no other sync), the step's byte bound, one steady step's kernels by
+    group, and each prefill bucket's ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opts = dict(slots=DECODE_SLOTS, prefill_buckets=DECODE_BUCKETS,
+                max_queue=DECODE_QUEUE, device=dev, name="lm-profile",
+                autostart=False, kv_layout=layout)
+    if layout == "paged":
+        opts.update(kv_block_size=DECODE_BLOCK, kv_prefix_cache=False)
+    eng = decode_mod.DecodeEngine(cfg, params, **opts)
+    try:
+        for req in traffic[:DECODE_SLOTS]:
+            p = req["prompt"]
+            eng.submit(p, max_new_tokens=min(400, cfg.max_len - len(p)),
+                       temperature=req["temperature"], seed=req["seed"])
+        _drive_engine(eng, 1 + 3)         # the admissions, then warm steps
+        base = eng._step_fn
+        marks = []
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(eng._stream)
+            out = base(*a)
+            e1.record(eng._stream)
+            marks.append((e0, e1, time.perf_counter() - t0))
+            return out
+
+        eng._step_fn = timed
+        n = DECODE_PROFILE_STEPS
+        t0 = time.perf_counter()
+        _drive_engine(eng, n)
+        tick_ms = (time.perf_counter() - t0) * 1e3 / n
+        eng._step_fn = base
+        enqueue_ms = 1e3 * sum(m[2] for m in marks) / len(marks)
+        wall_ms = sum(a.elapsed_time(b) for a, b, _ in marks) / len(marks)
+        lengths = [len(s.prompt) + len(s.tokens) - 1
+                   for s in eng._slot_sessions if s is not None]
+        fixed, live = step_bytes(cfg, DECODE_SLOTS, lengths)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _drive_engine(eng, n)
+            torch.cuda.synchronize()
+        evs = prof.events()
+        copies = sum(1 for e in evs if "memcpy dtoh" in e.name.lower()
+                     and e.device_type.name == "CUDA")
+        sync_names = {}
+        for e in evs:
+            if e.device_type.name == "CPU" and e.name.startswith("cuda") \
+                    and "synchronize" in e.name.lower():
+                sync_names[e.name] = sync_names.get(e.name, 0) + 1
+        print("decode %s synchronising runtime calls: %s"
+              % (layout, sync_names), flush=True)
+        syncs = sync_names.get("cudaStreamSynchronize", 0)
+        kernels = [e for e in prof.key_averages() if _dev_us(e) > 0
+                   and e.device_type.name == "CUDA"]
+        dev_ms = sum(_dev_us(e) for e in kernels) / 1e3 / n
+        print("decode step (%s, %d slots busy, lengths %d-%d): device %.3f "
+              "ms (the kernels' busy time, profiler); step wall on the "
+              "stream %.3f ms (CUDA events), host enqueue %.3f ms, loop "
+              "iteration %.3f ms (host clock, the packed read included); "
+              "byte bound %.3f ms at the fixed shape (%.3f GB), %.3f ms for "
+              "the live lengths (%.3f GB) at 3.35 TB/s"
+              % (layout, len(lengths), min(lengths), max(lengths), dev_ms,
+                 wall_ms, enqueue_ms, tick_ms, fixed / PEAK_BYTES * 1e3,
+                 fixed / 1e9, live / PEAK_BYTES * 1e3, live / 1e9),
+              flush=True)
+        print("decode %s profile of %d steps: %d device-to-host copies, %d "
+              "stream synchronisations" % (layout, n, copies, syncs),
+              flush=True)
+        decode_kernel_groups(kernels, dev_ms, n, layout)
+        if copies != n:
+            raise RuntimeError("decode %s: %d device-to-host copies in %d "
+                               "steps" % (layout, copies, n))
+        if syncs != n:
+            raise RuntimeError("decode %s: %d stream synchronisations in %d "
+                               "steps" % (layout, syncs, n))
+        # the sampling alone, at the step's shape
+        logits = torch.randn(DECODE_SLOTS, cfg.vocab, device=dev)
+        temps = torch.full((DECODE_SLOTS,), DECODE_TEMP, device=dev)
+        seeds = torch.arange(DECODE_SLOTS, device=dev)
+        pos = torch.full((DECODE_SLOTS,), 300, device=dev)
+        vidx = torch.arange(cfg.vocab, device=dev)
+        samp = _time_ms(lambda: decode_mod.sample_tokens(
+            logits, temps, seeds, pos, vidx), 20)
+        print("decode sampling alone (%d x %d, the hash and Gumbel-max): "
+              "%.3f ms" % (DECODE_SLOTS, cfg.vocab, samp), flush=True)
+        prefill, prefill_dev = {}, {}
+        for b in DECODE_BUCKETS:
+            toks = np.resize(np.asarray(traffic[0]["prompt"], np.int32), b)
+            plan = None
+            if layout == "paged":
+                plan = mx.serving.kvblocks.AdmitPlan(0, 0, 0, False, 0)
+            st = eng._boot_state
+
+            def one():
+                eng._prefill_fn(st, toks, b, 0, 0, 0.0, 0, False, plan)
+
+            with torch.cuda.stream(eng._stream):
+                prefill[b] = _time_ms(one, 3, warmup=1)
+                with profile(activities=[ProfilerActivity.CUDA]) as pp:
+                    for _ in range(3):
+                        one()
+                    torch.cuda.synchronize()
+            prefill_dev[b] = sum(
+                _dev_us(e) for e in pp.key_averages()
+                if e.device_type.name == "CUDA") / 1e3 / 3
+        print("decode %s prefill ms per bucket, device (the kernels' busy "
+              "time, profiler) / wall on the stream (CUDA events): %s" % (
+                  layout, ", ".join("%d: %.3f / %.3f" % (b, prefill_dev[b],
+                                                         prefill[b])
+                                    for b in DECODE_BUCKETS)), flush=True)
+    finally:
+        eng.close(drain=False)
+    return {"step_ms": dev_ms, "wall_ms": wall_ms, "enqueue_ms": enqueue_ms,
+            "tick_ms": tick_ms, "bound_fixed_ms": fixed / PEAK_BYTES * 1e3,
+            "bound_live_ms": live / PEAK_BYTES * 1e3, "prefill_ms": prefill,
+            "prefill_device_ms": prefill_dev, "copies": copies}
+
+
+def decode_kernel_groups(kernels, per_step_total, n, layout):
+    """One steady decode step's device time by group (cuBLAS products,
+    softmax, the paged gather and index writes, the sampling hash and
+    the other elementwise kernels), from a profiled window of ``n``."""
+    rules = (("cuBLAS", lambda k: any(w in k for w in (
+                 "gemm", "gemv", "cutlass", "xmma", "cublas"))),
+             ("softmax", lambda k: "softmax" in k),
+             ("gather/index", lambda k: "index" in k or "gather" in k),
+             ("argmax/reduce", lambda k: "reduce" in k or "argmax" in k),
+             ("memcpy", lambda k: "memcpy" in k),
+             ("elementwise (the hash included)", lambda k: True))
+    groups = {}
+    for e in kernels:
+        k = e.key.lower()
+        name = next(g for g, test in rules if test(k))
+        groups[name] = groups.get(name, 0.0) + _dev_us(e) / 1e3 / n
+    print("decode %s step by group (ms a step): %s" % (layout, ", ".join(
+        "%s %.3f (%.1f%%)" % (k, v, 100 * v / per_step_total)
+        for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))),
+        flush=True)
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
+        print("decode %s  %8.3f ms a step  x%-5d %s" % (
+            layout, _dev_us(e) / 1e3 / n, e.count, e.key[:100]), flush=True)
+
+
+def _at_step(eng, step, action):
+    """Wraps ``eng``'s step function: ``action()`` runs once, inside the
+    call that starts when ``eng.steps == step``, before the step."""
+    base = eng._step_fn
+    fired = []
+
+    def wrapped(*a):
+        if eng.steps == step and not fired:
+            fired.append(step)
+            action()
+        return base(*a)
+
+    eng._step_fn = wrapped
+    return fired
+
+
+def _long_migrations(label, lengths):
+    """Fails unless some migrated transcript outgrew the largest prefill
+    bucket (so the phase re-prefilled one at max_len); prints them."""
+    long = [n for n in lengths if n > DECODE_BUCKETS[-1]]
+    print("decode %s: %d transcripts migrated, %d past the largest prefill "
+          "bucket %d (longest %d tokens)" % (label, len(lengths), len(long),
+                                             DECODE_BUCKETS[-1],
+                                             max(lengths, default=0)),
+          flush=True)
+    if not long:
+        raise RuntimeError("decode %s: no migrated transcript outgrew the "
+                           "largest prefill bucket" % label)
+
+
+def decode_phase(mx, seed):
+    """Phase 15 (see the module docstring)."""
+    from mxnet_tpu_torch.models import transformer_lm as tlm
+    from mxnet_tpu_torch.serving import decode as dmod
+
+    dev = torch.device("cuda", 0)
+    cfg = tlm.LMConfig(eos_id=DECODE_WIDTHS["vocab"], **DECODE_WIDTHS)
+    t_phase = time.perf_counter()
+    times, mark = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        times[name] = now - mark[0]
+        mark[0] = now
+
+    params_cpu = tlm.init_params(cfg, seed=seed)
+    params = tlm.params_to(params_cpu, dev)
+    n_params = sum(v.numel() for p in params.values()
+                   for v in (p.values() if isinstance(p, dict) else [p]))
+    print("decode model: transformer_lm vocab %d, embed %d, %d heads, %d "
+          "layers, ffn %d, max_len %d: %.1f M parameters (%.3f GB f32); "
+          "dense KV %.3f GB a replica at %d slots"
+          % (cfg.vocab, cfg.embed, cfg.heads, cfg.layers, cfg.ffn,
+             cfg.max_len, n_params / 1e6, 4 * n_params / 1e9,
+             2 * cfg.layers * DECODE_SLOTS * cfg.max_len * cfg.embed * 4
+             / 1e9, DECODE_SLOTS), flush=True)
+    traffic = decode_traffic(seed, DECODE_CLIENTS, cfg.vocab)
+    lap("weights")
+    engine_opts = {"slots": DECODE_SLOTS, "prefill_buckets": DECODE_BUCKETS,
+                   "max_queue": DECODE_QUEUE}
+    mx.telemetry.enable()
+    out = {}
+
+    # A: dense, B: paged with the prefix cache
+    res_a, out["dense"], stack = decode_serving_run(
+        mx, tlm, cfg, params, dev, traffic, "dense", engine_opts, "run A")
+    _close(stack)
+    lap("run A")
+    res_b, out["paged"], stack = decode_serving_run(
+        mx, tlm, cfg, params, dev, traffic, "paged", engine_opts, "run B")
+    if not out["paged"]["prefix_hits"]:
+        raise RuntimeError("decode: the paged run took no prefix hit")
+    # a retry: one shared prompt sent twice in a row to the idle pool
+    # (both land on replica 0); the second admission hits the prefix
+    # cache at n - 1 and copies the partial tail block on write
+    retry = next(i for i, r in enumerate(traffic) if r["shared"]
+                 and (len(r["prompt"]) - 1) % DECODE_BLOCK)
+    pool_b = stack[2]
+    cow0 = pool_b.describe()["kv"]["cow_copies"]
+    res_r = [decode_run(mx, stack[1].url, [traffic[retry]], "run B retry")
+             [0][0] for _ in range(2)]
+    out["paged"]["cow_copies"] = pool_b.describe()["kv"]["cow_copies"]
+    if out["paged"]["cow_copies"] <= cow0:
+        raise RuntimeError("decode: the retried prompt took no "
+                           "copy-on-write")
+    print("decode run B retry: client %d's prompt (%d tokens) twice on the "
+          "idle pool: copy-on-write copies %d -> %d"
+          % (retry, len(traffic[retry]["prompt"]), cow0,
+             out["paged"]["cow_copies"]), flush=True)
+    _close(stack)
+    lap("run B and its retry")
+    streams_a = [r["tokens"] for r in res_a]
+    t0 = time.perf_counter()
+    refs = [_decision_rows(tlm, dmod, cfg, params, req, streams_a[i])
+            for i, req in enumerate(traffic)]
+    print("decode references: %d teacher-forced forwards in %.2f s"
+          % (len(refs), time.perf_counter() - t0), flush=True)
+    lap("references")
+    greedy = [i for i, r in enumerate(traffic) if r["temperature"] == 0]
+    g_tr = [traffic[i] for i in greedy]
+    ties = hold_streams("run A", g_tr, [refs[i] for i in greedy],
+                        [streams_a[i] for i in greedy], None,
+                        "greedy decode = argmax of the forward")
+    ties += hold_streams("run A", traffic, refs, streams_a, None,
+                         "each token = the argmax of its decision scores")
+    ties += hold_streams("run B", traffic, refs,
+                         [r["tokens"] for r in res_b], streams_a,
+                         "paged = dense", whole=True)
+    ties += hold_streams("run B retry", [traffic[retry]] * 2,
+                         [refs[retry]] * 2, [r["tokens"] for r in res_r],
+                         [streams_a[retry]] * 2,
+                         "the copied-on-write retries = dense")
+
+    # C: failover — one replica's step raises mid-run
+    migrated_seeds, migrated_lens = [], []
+
+    def failover(pool, _reg):
+        eng = pool.replicas[1].engine
+
+        def boom():
+            raise RuntimeError("injected step failure (phase 15)")
+
+        _at_step(eng, DECODE_EVENT_STEP, boom)
+        base = pool._migrate_sessions
+
+        def noted(rid, sessions, exc, **kw):
+            migrated_seeds.extend(x.seed for x in sessions)
+            migrated_lens.extend(x.prompt.size + len(x.tokens)
+                                 for x in sessions)
+            return base(rid, sessions, exc, **kw)
+
+        pool._migrate_sessions = noted
+        return None
+
+    res_c, out["failover"], stack = decode_serving_run(
+        mx, tlm, cfg, params, dev, traffic, "dense", engine_opts,
+        "run C (failover)", failover, {"quarantine_after": 1})
+    reg, server, pool = stack
+    migrated = [i for i, r in enumerate(traffic)
+                if r["seed"] in set(migrated_seeds)]
+    moved = sum(e.resumed for e in (r.engine for r in pool.replicas))
+    ties += hold_streams("run C", traffic, refs,
+                         [r["tokens"] for r in res_c], streams_a,
+                         "failover = uninterrupted")
+    deadline = time.monotonic() + 60
+    while pool._circuit[1] != mx.serving.pool.CIRCUIT_HALF_OPEN:
+        if time.monotonic() > deadline:
+            raise RuntimeError("decode: replica 1 never re-warmed "
+                               "(circuit %s)" % pool._circuit[1])
+        time.sleep(0.02)
+    probes = [pool.generate(traffic[i % len(traffic)]["prompt"][:16],
+                            max_new_tokens=4)
+              for i in range(DECODE_SLOTS + 8)]
+    for s in probes:
+        s.result(120)
+    kinds = [e["event"] for e in mx.telemetry.events_recent(5000)
+             if e.get("replica") == "1" and e["event"].startswith(
+                 "serving.pool.")]
+    want = ["serving.pool.circuit_open", "serving.pool.rewarmed",
+            "serving.pool.circuit_half_open", "serving.pool.circuit_close"]
+    seen = [k for k in kinds if k in want]
+    if pool._circuit[1] != mx.serving.pool.CIRCUIT_CLOSED \
+            or seen[-4:] != want:
+        raise RuntimeError("decode: breaker of replica 1 went %r, now %s"
+                           % (seen, pool._circuit[1]))
+    print("decode run C: replica 1 failed at its step %d; %d sessions "
+          "re-prefilled on replica 0 (%d clients migrated, %d greedy; %d "
+          "streams carried the failover line), every stream equal to run "
+          "A by the token rule; breaker %s"
+          % (DECODE_EVENT_STEP, moved, len(migrated),
+                          sum(traffic[i]["temperature"] == 0
+                              for i in migrated),
+             sum(1 for r in res_c if r["events"]), " -> ".join(
+                                  k.split(".")[-1] for k in seen[-4:])),
+          flush=True)
+    if not any(traffic[i]["temperature"] == 0 for i in migrated):
+        raise RuntimeError("decode: no greedy session was migrated")
+    _long_migrations("run C", migrated_lens)
+    _close(stack)
+    lap("run C and the breaker")
+
+    # D: version swap — register a new pool with the same params mid-run
+    new_pool = mx.serving.lm_pool(cfg, params, n_replicas=DECODE_REPLICAS,
+                                  devices=[dev] * DECODE_REPLICAS,
+                                  engine_opts=dict(engine_opts,
+                                                   kv_layout="dense"))
+    swapped, adopted_lens = [], []
+    adopt = new_pool.adopt
+
+    def noted_adopt(sess):
+        adopted_lens.append(sess.prompt.size + len(sess.tokens))
+        return adopt(sess)
+
+    new_pool.adopt = noted_adopt
+
+    def swap(pool, reg):
+        go = threading.Event()
+        _at_step(pool.replicas[0].engine, DECODE_EVENT_STEP, go.set)
+
+        def run():
+            if not go.wait(300):
+                raise RuntimeError("decode: the swap run never reached "
+                                   "its step %d" % DECODE_EVENT_STEP)
+            reg.register("lm", new_pool)
+            swapped.append(new_pool.describe()["failovers"])
+
+        return run
+
+    res_d, out["swap"], stack = decode_serving_run(
+        mx, tlm, cfg, params, dev, traffic, "dense", engine_opts,
+        "run D (version swap)", swap)
+    if not swapped or not swapped[0]:
+        raise RuntimeError("decode: the swap moved no session")
+    ties += hold_streams("run D", traffic, refs,
+                         [r["tokens"] for r in res_d], streams_a,
+                         "version swap = uninterrupted")
+    print("decode run D: register('lm', new pool) at step %d of replica 0 "
+          "moved %d in-flight sessions to version %d"
+          % (DECODE_EVENT_STEP, swapped[0], new_pool.version), flush=True)
+    _long_migrations("run D", adopted_lens)
+    _close(stack)
+    del stack, pool, new_pool, reg, server
+    lap("run D")
+
+    out["near_ties"] = ties
+    out["dense_vs_paged"], out["step_vs_forward"] = decode_dense_vs_paged(
+        tlm, cfg, params, traffic, DECODE_SLOTS)
+    lap("dense against paged")
+    out["card_vs_cpu"] = decode_card_vs_cpu(tlm, cfg, params_cpu, params,
+                                            seed)
+    lap("card against CPU")
+    for layout in ("dense", "paged"):
+        out["profile_" + layout] = decode_step_profile(
+            mx, dmod, cfg, params, dev, traffic, layout)
+    lap("profiles")
+    print("decode phase: %.1f s (%s)" % (
+        time.perf_counter() - t_phase,
+        ", ".join("%s %.1f s" % kv for kv in times.items())), flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3148,6 +4013,7 @@ def main():
     lstm_launches = lstm_training_phase(mx, rk, args.seed)
     lstm_parity_phase(mx, args.seed)
     mnist_phase(mx, args.seed)
+    decode_phase(mx, args.seed)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"

@@ -7,11 +7,27 @@ import os
 import threading
 
 __all__ = ["MXNetError", "NameManager", "Registry", "atomic_write",
-           "atomic_write_bytes"]
+           "atomic_write_bytes", "env_int", "env_float"]
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework."""
+
+
+def env_int(name, default):
+    """Integer environment setting; ``default`` when unset or malformed."""
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def env_float(name, default):
+    """Float environment setting; ``default`` when unset or malformed."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return float(default)
 
 
 class Registry:

@@ -1,10 +1,10 @@
 """Model definitions built through ``mxnet_tpu_torch.symbol``."""
 
-from . import inception_v3, lenet, lstm_lm, mlp, resnet
+from . import inception_v3, lenet, lstm_lm, mlp, resnet, transformer_lm
 from .long_context_lm import build_lm, copy_task
 
 __all__ = ["build_lm", "copy_task", "get_symbol", "inception_v3", "lenet",
-           "lstm_lm", "mlp", "resnet"]
+           "lstm_lm", "mlp", "resnet", "transformer_lm"]
 
 _BUILDERS = {
     "lenet": lenet.get_symbol,

@@ -2,11 +2,12 @@
 ``mxnet_tpu/random.py``: :func:`seed`, :func:`get_state`,
 :func:`set_state`.
 
-The port draws at random in two places: the initializers, from their
-default ``torch.Generator`` (``initializer.py``), and ``NDArrayIter``'s
-shuffle, from numpy's global generator.  :func:`seed` seeds both, as the
-JAX package's seeds its key and numpy's generator.  The JAX key has no
-counterpart here: no op of the port draws at run time.
+The port draws at random in three places: the initializers, from their
+default ``torch.Generator`` (``initializer.py``), ``NDArrayIter``'s
+shuffle, from numpy's global generator, and the decode tier's session
+seeds (:func:`next_seed`, where the JAX package takes a word of its next
+key).  :func:`seed` seeds all three.  No op of the port draws at run
+time: decode sampling is a counter-based hash of (seed, position).
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ import torch
 
 from . import initializer as _init
 
-__all__ = ["seed", "get_seed", "get_state", "set_state"]
+__all__ = ["seed", "get_seed", "get_state", "set_state", "next_seed"]
 
 _lock = threading.Lock()
 _seed_value = 0
+#: the decode tier's session seeds (not part of :func:`get_state`)
+_session_rng = np.random.RandomState(0)
 
 
 def seed(seed_state):
@@ -31,6 +34,14 @@ def seed(seed_state):
         _seed_value = int(seed_state)
         _init.seed(_seed_value)
         np.random.seed(_seed_value & 0xFFFFFFFF)
+        _session_rng.seed(_seed_value & 0xFFFFFFFF)
+
+
+def next_seed():
+    """A 32-bit sampling seed for a decode session that was given none;
+    ``seed(n)`` makes the sequence of these reproducible."""
+    with _lock:
+        return int(_session_rng.randint(0, 1 << 32, dtype=np.uint64))
 
 
 def get_seed():

@@ -199,8 +199,11 @@ class ServedModel:
 
 
 class ModelRegistry:
-    """``name -> ServedModel`` with atomic swap semantics.  Models run on
-    the card unless ``ctx`` says otherwise."""
+    """``name -> servable`` with atomic swap semantics: a
+    :class:`ServedModel` (``/predict``) or a decode servable
+    (:class:`~mxnet_tpu_torch.serving.pool.ReplicaPool` or a bare
+    :class:`~mxnet_tpu_torch.serving.decode.DecodeEngine`, ``/generate``).
+    Models run on the card unless ``ctx`` says otherwise."""
 
     def __init__(self, ctx=None, batch_timeout_us=2000,
                  max_queue_depth=128):
@@ -209,6 +212,10 @@ class ModelRegistry:
                             "max_queue_depth": max_queue_depth}
         self._models = {}
         self._lock = threading.Lock()
+        #: the fleet controller the frontend's ``/fleet`` reads; none is
+        #: ported yet, so always None (the JAX package's uncontrolled
+        #: registry)
+        self.controller = None
 
     def load(self, name, symbol_json, param_blob, input_shape,
              data_name="data", buckets=(1, 8, 32), version=None):
@@ -232,6 +239,47 @@ class ModelRegistry:
         logging.info("serving: model %r v%d loaded (buckets %s)",
                      name, model.version, list(model.buckets))
         return model
+
+    def register(self, name, servable, version=None):
+        """Pointer-flip swap of an ALREADY-BUILT servable (a
+        :class:`~mxnet_tpu_torch.serving.pool.ReplicaPool`, a bare
+        :class:`~mxnet_tpu_torch.serving.decode.DecodeEngine`, a
+        :class:`ServedModel` built off-registry, or anything exposing
+        ``version``/``close``/``describe``): the caller builds and warms
+        the new version outside the registry, this swaps it in under the
+        registry lock and retires the old one.  A decode POOL's in-flight
+        generations MIGRATE onto the new servable (``close(successor=)``:
+        each straggler re-prefills its transcript, the same stream as an
+        uninterrupted run when both versions serve the same params)
+        instead of being errored out."""
+        if version is not None:
+            servable.version = int(version)
+        # healthz/models key by servable.name: the registration name is
+        # authoritative
+        servable.name = name
+        with self._lock:
+            prev = self._models.get(name)
+            if version is None:
+                # bare engines carry no version of their own: the registry
+                # stamps one so every servable answers .version uniformly
+                servable.version = prev.version + 1 if prev is not None \
+                    else int(getattr(servable, "version", 1))
+            self._models[name] = servable
+        if prev is not None:
+            if hasattr(prev, "replicas") and (
+                    hasattr(servable, "adopt")
+                    or hasattr(servable, "resume")):
+                # old decode pool -> new decode servable: migrate the
+                # stragglers instead of draining/erroring them
+                prev.close(successor=servable)
+            else:
+                prev.close()
+        _telemetry.inc("serving.model.loads", model=name)
+        _telemetry.event("serving.model.load", model=name,
+                         version=servable.version)
+        logging.info("serving: servable %r v%d registered (%s)",
+                     name, servable.version, type(servable).__name__)
+        return servable
 
     @staticmethod
     def _read_manifest(model_dir):
@@ -296,6 +344,11 @@ class ModelRegistry:
             raise UnknownModel("model %r is not loaded (have %s)"
                                % (name, loaded))
         return model
+
+    def models(self):
+        """Loaded servables, sorted by name."""
+        with self._lock:
+            return sorted(self._models.values(), key=lambda m: m.name)
 
     def close(self):
         """Unload everything (server shutdown)."""

@@ -1,5 +1,6 @@
 """What the card scripts at the repository root compute without a card:
-their source edits, their sums and the build reports they parse.
+their source edits, their sums, the build reports they parse, and the
+decode phase's traffic, token rule and byte bound.
 ``chip_smoke.py``, ``chip_bn_costs.py``, ``chip_lstm_costs.py`` and
 ``chip_k3b_costs.py`` run only on an NVIDIA card; these checks keep the
 parts that do not need one from failing there first."""
@@ -149,3 +150,65 @@ def test_mnist_fit_helper_runs_on_the_cpu(tmp_path):
                                            1, name, params)
     assert type(mod._optimizer).__name__ == "NAG"
     assert metrics["cross-entropy"] == metrics["cross-entropy"]  # not NaN
+
+
+def test_decode_traffic_is_seeded_and_shaped():
+    smoke = _script("chip_smoke")
+    a = smoke.decode_traffic(0, 96, 50257)
+    assert a == smoke.decode_traffic(0, 96, 50257)
+    assert a != smoke.decode_traffic(1, 96, 50257)
+    lens = [len(r["prompt"]) for r in a]
+    assert min(lens) >= 16 and max(lens) <= 480
+    shared = [r for r in a if r["shared"]]
+    assert len(shared) == 48
+    prefix = shared[0]["prompt"][:256]
+    assert all(r["prompt"][:256] == prefix and len(r["prompt"]) > 256
+               for r in shared)
+    assert sum(r["temperature"] == 0 for r in a) == 48
+    assert {r["temperature"] for r in a} == {0.0, 0.8}
+    assert sum(r["stream"] for r in a) == 24
+    assert all(r["max_new_tokens"] == 128 for r in a)
+    assert len({r["seed"] for r in a}) == 96
+    # every transcript fits max_len, every prompt the largest bucket
+    assert max(lens) + 128 <= 1024 and max(lens) <= 512
+
+
+def test_token_rule_stops_at_the_first_near_tie():
+    smoke = _script("chip_smoke")
+    gap = [1.0, 1.0, 1e-4, 1.0]
+    scale = [10.0] * 4
+    assert smoke.token_rule([1, 2, 3, 4], [1, 2, 3, 4], gap, scale) \
+        == (True, 2)
+    # a disagreement after the near tie is allowed
+    assert smoke.token_rule([1, 2, 3, 9], [1, 2, 5, 4], gap, scale) \
+        == (True, 2)
+    # one before it is not
+    assert smoke.token_rule([1, 7, 3], [1, 2, 3], gap, scale) == (False, 1)
+    assert smoke.token_rule([1, 2], [1, 2], [1.0, 1.0], [1.0, 1.0]) \
+        == (True, None)
+    assert smoke.token_rule([1, 2], [1, 2, 3], [1.0] * 3, [1.0] * 3) \
+        == (False, 2)
+
+
+def test_step_byte_bound_counts_weights_logits_and_kv():
+    smoke = _script("chip_smoke")
+    from mxnet_tpu_torch.models import transformer_lm as tlm
+
+    cfg = tlm.LMConfig(eos_id=50257, **smoke.DECODE_WIDTHS)
+    fixed, live = smoke.step_bytes(cfg, 32, [99] * 32)
+    params = tlm.init_params(tlm.LMConfig(64, 16, 2, 2, 32, 8, 64))
+    n = sum(v.numel() for p in params.values()
+            for v in (p.values() if isinstance(p, dict) else [p]))
+    small = tlm.LMConfig(64, 16, 2, 2, 32, 8, 64)
+    f1, l1 = smoke.step_bytes(small, 1, [0])
+    # every parameter but the two embedding tables, once; one row of each
+    # table, one logits row; the cache: 8 positions read and one written
+    # (fixed), one read and one written (live)
+    row = 2 * 2 * 16
+    base = n - 64 * 16 - 8 * 16 + 2 * 16 + 64
+    assert f1 == 4 * (base + 8 * row + row)
+    assert l1 == 4 * (base + row + row)
+    # at full width the fixed-shape KV read is 6.44 GB of the 7.87
+    assert abs(fixed / 1e9 - 7.869) < 0.01
+    assert abs((fixed - live) - 4 * 32 * (1024 - 100) * 2 * 24 * 1024) < 1
+    assert smoke.step_bytes(cfg, 32)[1] is None

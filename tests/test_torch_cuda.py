@@ -1319,3 +1319,156 @@ def test_inception_v3_step_launches_k1_and_k2_94_times(cuda_device):
     for k in caux:
         np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+
+
+# -- the decode tier (transformer_lm, DecodeEngine, the pool) ----------------
+def _decode_cfg():
+    from mxnet_tpu_torch.models import transformer_lm as tlm
+
+    cfg = tlm.LMConfig(64, 32, 4, 2, 64, 64, eos_id=64)
+    return tlm, cfg, tlm.init_params(cfg, seed=3)
+
+
+def _greedy_ref(tlm, cfg, params, prompt, n):
+    toks = list(prompt)
+    for _ in range(n):
+        lg = tlm.forward_logits(cfg, params, np.array([toks]))
+        toks.append(int(lg[0, -1].argmax()))
+    return toks[len(prompt):]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_decode_engine_on_the_card(cuda_device, layout):
+    """A tiny engine on cuda:0: its state lives there, greedy decode is
+    the argmax of the teacher-forced forward on the card, and a
+    temperature stream is the same in both layouts (the hash's bits are
+    the device's)."""
+    from mxnet_tpu_torch.serving import DecodeEngine
+
+    tlm, cfg, params = _decode_cfg()
+    eng = DecodeEngine(cfg, params, slots=4, prefill_buckets=(8, 16),
+                       kv_layout=layout, kv_block_size=4)
+    try:
+        assert all(t.device == cuda_device for t in eng.state_tensors())
+        prompts = [[5, 7, 9, 2], [1, 2, 3, 4, 5, 6], [9] * 11]
+        sess = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        hot = eng.submit([3, 1, 4, 1, 5], max_new_tokens=12,
+                         temperature=0.9, seed=77)
+        got = [s.result(60) for s in sess]
+        pdev = tlm.params_to(params, cuda_device)
+        for p, g in zip(prompts, got):
+            assert g == _greedy_ref(tlm, cfg, pdev, p, 10)
+        other = DecodeEngine(cfg, params, slots=2, prefill_buckets=(8,),
+                             kv_layout="dense" if layout == "paged"
+                             else "paged", kv_block_size=4)
+        try:
+            twin = other.generate([3, 1, 4, 1, 5], max_new_tokens=12,
+                                  temperature=0.9, seed=77, timeout=60)
+        finally:
+            other.close()
+        assert hot.result(60) == twin
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_sampling_hash_bits_equal_on_card_and_cpu(cuda_device):
+    from mxnet_tpu_torch.serving.decode import gumbel_noise, sample_bits
+
+    rs = np.random.RandomState(0)
+    seeds = torch.from_numpy(rs.randint(0, 1 << 32, 64, dtype=np.int64))
+    pos = torch.from_numpy(rs.randint(0, 1 << 20, 64))
+    vidx = torch.arange(50257)
+    cpu = sample_bits(seeds, pos, vidx)
+    card = sample_bits(seeds.to(cuda_device), pos.to(cuda_device),
+                       vidx.to(cuda_device)).cpu()
+    assert torch.equal(cpu, card)
+    g_cpu = gumbel_noise(seeds, pos, vidx)
+    g_card = gumbel_noise(seeds.to(cuda_device), pos.to(cuda_device),
+                          vidx.to(cuda_device)).cpu()
+    assert (g_cpu - g_card).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_decode_step_reads_the_host_once(cuda_device, layout):
+    """A profiled window of decode steps holds one device-to-host copy
+    and one stream synchronisation per step, and nothing else syncs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.serving import DecodeEngine
+
+    tlm, cfg, params = _decode_cfg()
+    eng = DecodeEngine(cfg, params, slots=4, prefill_buckets=(8,),
+                       kv_layout=layout, kv_block_size=4, autostart=False)
+    try:
+        for i in range(4):
+            eng.submit([1 + i, 2, 3], max_new_tokens=40,
+                       temperature=0.5 * (i % 2), seed=i)
+        eng._running = True
+        state = eng._tick(eng._boot_state)      # the admissions + a step
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                state = eng._tick(state)
+        evs = prof.events()
+        d2h = sum(1 for e in evs if e.device_type.name == "CUDA"
+                  and "memcpy dtoh" in e.name.lower())
+        syncs = sum(1 for e in evs if e.device_type.name == "CPU"
+                    and e.name == "cudaStreamSynchronize")
+        assert eng.steps == 11
+        assert d2h == 10 and syncs == 10
+    finally:
+        eng._running = False
+        eng.close(drain=False)
+
+
+@pytest.mark.cuda
+def test_decode_engine_for_an_absent_card_raises(cuda_device):
+    from mxnet_tpu_torch.serving import DecodeEngine, lm_pool
+
+    tlm, cfg, params = _decode_cfg()
+    absent = "cuda:%d" % torch.cuda.device_count()
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        DecodeEngine(cfg, params, slots=2, prefill_buckets=(8,),
+                     device=absent)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        lm_pool(cfg, params, n_replicas=1, devices=[absent])
+
+
+@pytest.mark.cuda
+def test_pool_failover_on_the_card(cuda_device):
+    """Two replicas on cuda:0; one's step raises: its sessions continue
+    on the other, equal to an uninterrupted pool's streams."""
+    from mxnet_tpu_torch.serving import lm_pool
+
+    tlm, cfg, params = _decode_cfg()
+    opts = {"slots": 4, "prefill_buckets": (8, 16)}
+    ref = lm_pool(cfg, params, n_replicas=2, engine_opts=opts)
+    try:
+        want = [ref.generate([1, 2, 3, i], max_new_tokens=16, seed=i,
+                             temperature=0.7 * (i % 2)).result(60)
+                for i in range(6)]
+    finally:
+        ref.close()
+    pool = lm_pool(cfg, params, n_replicas=2, engine_opts=opts,
+                   quarantine_after=1)
+    try:
+        eng = pool.replicas[1].engine
+        base = eng._step_fn
+
+        def boom(*a):
+            if eng.steps == 3:
+                raise RuntimeError("injected")
+            return base(*a)
+
+        eng._step_fn = boom
+        sess = [pool.generate([1, 2, 3, i], max_new_tokens=16, seed=i,
+                              temperature=0.7 * (i % 2)) for i in range(6)]
+        got = [s.result(60) for s in sess]
+        assert got == want
+        assert sum(s.migrations for s in sess) >= 1
+    finally:
+        pool.close()

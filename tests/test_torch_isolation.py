@@ -32,7 +32,11 @@ def test_import_loads_no_jax_and_no_mxnet_tpu():
             "mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.random, "
             "mxnet_tpu_torch.rnn.rnn, mxnet_tpu_torch.models.inception_v3, "
             "mxnet_tpu_torch.models.lenet, mxnet_tpu_torch.models.mlp, "
-            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer\n"
+            "mxnet_tpu_torch.optimizer, mxnet_tpu_torch.initializer, "
+            "mxnet_tpu_torch.models.transformer_lm, "
+            "mxnet_tpu_torch.serving.kvblocks, "
+            "mxnet_tpu_torch.serving.decode, mxnet_tpu_torch.serving.pool, "
+            "mxnet_tpu_torch.serving.frontend\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -90,6 +94,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
         mx.serving.ModelRegistry().load_dir(str(tmp_path))
     with pytest.raises(mx.MXNetError, match="CUDA"):
         mx.serving.ServedModel("m", net.tojson(), blob, (4,), buckets=(1,))
+    tlm = mx.models.transformer_lm
+    cfg = tlm.LMConfig(16, 8, 2, 1, 8, 16, 16)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        mx.serving.DecodeEngine(cfg, tlm.init_params(cfg), slots=1,
+                                prefill_buckets=(4,))
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        mx.serving.lm_pool(cfg, tlm.init_params(cfg), n_replicas=1,
+                           engine_opts={"slots": 1,
+                                        "prefill_buckets": (4,)})
     assert mx.gpu(0).device_type == "gpu" and mx.current_context() == mx.cpu()
 
 
