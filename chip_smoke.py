@@ -230,7 +230,32 @@
    group, and the prefill ms per bucket (device and wall).  Every state
    tensor of every replica must lie on the card.  The phase prints its
    time by part.
-16. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
+16. Fleet phase (the fleet control plane over phase 15's stack): the same
+   model, weights and traffic, dense, 32 slots a replica, ``lm_pool`` ->
+   ``register`` -> ``FleetController`` (a tick every 200 ms, replicas
+   placed by a ``DeviceFleet`` of cuda:0) -> ``ServingHTTPServer``.  Run
+   E, autoscale: one replica, a TTFT-p99 SLO of 1000 ms, two breach ticks,
+   five slack ticks, 2 s of cooldown, at most three replicas (three to the
+   card); 64 clients at once, then the other 32 one at a time over 30 s
+   from 3 s on.  The controller must scale up while the burst is served
+   and, once the breach has cleared, scale down a replica whose live
+   sessions migrate; the fleet ends at one replica.  Run F, supervision: every other client (48)
+   on two replicas, restart budget 1; ``serving.replica.kill`` fires at the
+   pool's step 128 (each replica's 64th); the controller replaces the dead
+   replica on cuda:0 (warmed before routing), the survivor is killed 8
+   steps later and the model is quarantined.  Run G, shedding at capacity:
+   48 clients every 100 ms on a full fleet (two replicas, two to the card,
+   at most two), half at priority 1 (under the pool's floor of 5), an SLO
+   of 10 ms that any first token breaches: clients under the floor are
+   refused (429, reason ``priority``) only while the pressure is on, every
+   client at the floor is served, the pressure lifts after the burst and a
+   priority-1 probe is served.  Every served stream must equal run A's in
+   full, nothing may fail or (E, F) be shed.  Prints per run tokens/s,
+   TTFT p50/p99, peak memory (allocated and reserved), each decision with
+   its time, the replica count over time and, for each added replica, the
+   time from the SLO breach (and from the decision) to its first token;
+   and its GETs of ``/fleet`` and ``/healthz``.
+17. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
    name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
@@ -3236,7 +3261,7 @@ def _http_generate(url, req, timeout=600):
 
     u = urlparse(url)
     body = {k: req[k] for k in ("prompt", "max_new_tokens", "temperature",
-                                "stream", "seed")}
+                                "stream", "seed", "priority") if k in req}
     body["model"] = "lm"
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
     try:
@@ -3939,6 +3964,602 @@ def decode_phase(mx, seed):
     print("decode phase: %.1f s (%s)" % (
         time.perf_counter() - t_phase,
         ", ".join("%s %.1f s" % kv for kv in times.items())), flush=True)
+    # phase 16 serves the same model and traffic and holds its streams to
+    # run A's
+    out["reuse"] = dict(cfg=cfg, params=params, traffic=traffic,
+                        streams=streams_a, refs=refs)
+    return out
+
+
+# -- the fleet control plane over the decode tier (phase 16) ------------------
+#: the controller's tick, and run E's autoscale policy: the SLO on the
+#: windowed TTFT p99, two breach ticks to scale up, five slack ticks to
+#: scale down, 2 s of cooldown after each scale, at most three replicas,
+#: three to the card
+FLEET_INTERVAL_MS = 200
+FLEET_SLO_MS = 1000.0
+FLEET_BREACH_TICKS, FLEET_SLACK_TICKS, FLEET_COOLDOWN_S = 2, 5, 2.0
+FLEET_PER_DEVICE = FLEET_MAX_REPLICAS = 3
+#: run E's arrivals: the first FLEET_BURST clients at once (twice one
+#: replica's slots, so the second 32 queue behind the first and breach the
+#: SLO when their turn comes), the rest one at a time over FLEET_TRICKLE_S
+#: seconds from FLEET_TRICKLE_AT on: past the burst's last session on a
+#: slow host too, so that the youngest replica holds live sessions when
+#: the controller scales down
+FLEET_BURST, FLEET_TRICKLE_AT, FLEET_TRICKLE_S = 64, 3.0, 30.0
+#: runs F and G send every other client of the 96
+FLEET_STRIDE = 2
+#: run F: the kill fires at the pool's step FLEET_KILL_STEP of each
+#: replica (midway through their 128-token sessions; the fault point counts
+#: the steps of both), the second kill FLEET_KILL2_STEPS steps after the
+#: controller replaced the first
+FLEET_KILL_STEP, FLEET_KILL2_STEPS = 64, 8
+#: run G: half the clients below the pool's priority floor; arrivals every
+#: FLEET_G_GAP_S; an SLO under any prefill's wall time (13.8-21.1 ms at
+#: 64-512 tokens on an H100 80GB HBM3 at 700 W), so every tick that sees
+#: a first token breaches: the run holds the shedding lever, not the
+#: threshold
+FLEET_LOW, FLEET_FLOOR = 1, 5
+FLEET_G_GAP_S, FLEET_G_SLO_MS = 0.1, 10.0
+#: how long a run waits for a decision or for the fleet to settle
+FLEET_WAIT_S = 60
+
+
+def fleet_arrivals(n, burst, trickle_at, trickle_s):
+    """Arrival offsets (seconds) of ``n`` clients: the first ``burst`` at
+    0, the rest evenly over ``[trickle_at, trickle_at + trickle_s)``."""
+    rest = n - burst
+    return [0.0] * min(burst, n) + [trickle_at + trickle_s * i / rest
+                                    for i in range(rest)]
+
+
+def fleet_priorities(n, seed):
+    """Half of ``n`` clients at ``FLEET_LOW``, half at ``FLEET_FLOOR``, in
+    an order drawn from ``seed``."""
+    rs = np.random.RandomState(seed + 16)
+    pr = [FLEET_LOW] * (n // 2) + [FLEET_FLOOR] * (n - n // 2)
+    return [int(p) for p in rs.permutation(pr)]
+
+
+def replica_timeline(samples):
+    """``[(t, live replicas)]`` samples reduced to their changes."""
+    out = []
+    for t, n in samples:
+        if not out or out[-1][1] != n:
+            out.append((t, n))
+    return out
+
+
+def check_timeline(label, timeline, start, peak, end):
+    """The live replica count starts at ``start``, reaches at least
+    ``peak`` and at most ``FLEET_MAX_REPLICAS``, and ends at ``end``."""
+    counts = [n for _t, n in timeline]
+    if not counts or counts[0] != start or max(counts) < peak \
+            or max(counts) > FLEET_MAX_REPLICAS or counts[-1] != end:
+        raise RuntimeError("fleet %s: replica count went %s (want %d, then "
+                           ">= %d, at most %d, ending at %d)"
+                           % (label, counts, start, peak,
+                              FLEET_MAX_REPLICAS, end))
+
+
+def check_autoscale(decisions, migrated, burst_done):
+    """Run E's decisions: a scale-up decided while the burst's sessions
+    were still served, then, once the breach had cleared (the policy
+    scales down only on slack), a scale-down whose replica handed live
+    sessions to the survivors (``migrated``: replica -> sessions its
+    removal migrated).  Returns the scale-ups and scale-downs."""
+    ups = [d for d in decisions if d["action"] == "scale_up"]
+    downs = [d for d in decisions if d["action"] == "scale_down"]
+    if not any(d["t"] <= burst_done for d in ups):
+        raise RuntimeError("fleet run E: no scale-up while the burst was "
+                           "served (decisions %r)"
+                           % [d["action"] for d in decisions])
+    if not any(d["t"] > ups[0]["t"] and migrated.get(d["replica"], 0) > 0
+               for d in downs):
+        raise RuntimeError(
+            "fleet run E: no scale-down moved live sessions (scale-downs "
+            "%r, migrated %r)" % ([(d["t"] - ups[0]["t"], d["replica"])
+                                   for d in downs], migrated))
+    return ups, downs
+
+
+def check_supervision(decisions):
+    """Run F's supervision decisions: one restart, then the quarantine."""
+    acts = [d["action"] for d in decisions
+            if d["action"] in ("restart", "restart_failed", "quarantine")]
+    if acts != ["restart", "quarantine"]:
+        raise RuntimeError("fleet run F: supervision went %r, want "
+                           "['restart', 'quarantine']" % acts)
+
+
+def pressure_windows(events, t_end):
+    """``[(on, off)]`` wall-time spans of the pool's shed pressure from its
+    ``serving.pool.shed_pressure`` events (a span still open ends at
+    ``t_end``)."""
+    spans = []
+    for e in events:
+        if e["on"] and (not spans or spans[-1][1] is not None):
+            spans.append([e["ts"], None])
+        elif not e["on"] and spans and spans[-1][1] is None:
+            spans[-1][1] = e["ts"]
+    return [(a, t_end if b is None else b) for a, b in spans]
+
+
+def check_shed(results, priorities, spans, margin=0.05, slack=0.25):
+    """Run G: only clients under the floor are refused, each with a 429
+    for its priority while the pressure was on (its request overlaps a
+    span, ``margin`` seconds of clock slack either side); none sent well
+    inside a span (``slack`` in from its ends) completes; every client at
+    the floor or above completes.  Returns the indices shed and those
+    under the floor that completed."""
+    shed, low_done = [], []
+    for i, (r, p) in enumerate(zip(results, priorities)):
+        if r.get("status") == 429:
+            err = r.get("error", "")
+            inside = any(r["recv"] >= a - margin and r["sent"] <= b + margin
+                         for a, b in spans)
+            if p >= FLEET_FLOOR or "priority" not in err \
+                    or "shed pressure" not in err or not inside:
+                raise RuntimeError("fleet run G: client %d (priority %d) "
+                                   "refused outside the pressure: %r"
+                                   % (i, p, r))
+            shed.append(i)
+        elif r.get("error") or r.get("status") != 200:
+            raise RuntimeError("fleet run G: client %d (priority %d) failed: "
+                               "%r" % (i, p, r))
+        elif p < FLEET_FLOOR:
+            if any(a + slack <= r["sent"] <= b - slack for a, b in spans):
+                raise RuntimeError("fleet run G: client %d (priority %d) "
+                                   "sent under pressure was admitted" % (i, p))
+            low_done.append(i)
+    if not shed:
+        raise RuntimeError("fleet run G: nothing was shed")
+    return shed, low_done
+
+
+def fleet_clients(url, traffic, offsets, priorities=None):
+    """Each client posts its request (``_http_generate``) at its offset
+    from the start, on its own thread; each result carries its send and
+    receive wall times.  Returns the results and the start time."""
+    results = [None] * len(traffic)
+    t0 = time.time()
+
+    def client(i):
+        wait = t0 + offsets[i] - time.time()
+        if wait > 0:
+            time.sleep(wait)
+        req = dict(traffic[i])
+        if priorities is not None:
+            req["priority"] = priorities[i]
+        sent = time.time()
+        try:
+            r = _http_generate(url, req)
+        except Exception as e:  # noqa: broad-except — checked by the caller
+            r = {"status": None, "error": repr(e)}
+        r["sent"], r["recv"] = sent, time.time()
+        results[i] = r
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(traffic))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(r is None for r in results):
+        raise RuntimeError("fleet: a client never returned")
+    return results, t0
+
+
+class _FleetWatch:
+    """Samples a pool every 20 ms: its live replica count over time and
+    the wall time of each replica's first emitted token."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.samples = []
+        self.first_token = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            now = time.time()
+            reps = list(self.pool.replicas)
+            self.samples.append((now, sum(
+                1 for r in reps if r.state == "active" and not r.dead)))
+            for r in reps:
+                if r.rid not in self.first_token and r.engine.tokens_out:
+                    self.first_token[r.rid] = now
+
+    def live(self):
+        return self.samples[-1][1] if self.samples else None
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _wait_until(cond, what, timeout=FLEET_WAIT_S):
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            raise RuntimeError("fleet: %s" % what())
+        time.sleep(0.05)
+
+
+def _get_json(url, path):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return json.loads(resp.read().decode())
+
+
+def _print_gets(label, url):
+    """GET /fleet and /healthz, each printed on a line of its own behind
+    its label; returns both documents."""
+    fleet = _get_json(url, "/fleet")
+    health = _get_json(url, "/healthz")
+    print("fleet %s GET /fleet %s" % (label, json.dumps(fleet, sort_keys=True)),
+          flush=True)
+    print("fleet %s GET /healthz %s" % (label, json.dumps(
+        health, sort_keys=True)), flush=True)
+    return fleet, health
+
+
+def _fleet_stack(mx, cfg, params, dev, n_replicas, ctl_opts,
+                 per_device=FLEET_PER_DEVICE):
+    """``lm_pool`` -> ``register`` -> ``FleetController`` (started) ->
+    ``ServingHTTPServer``, all on ``dev``, dense, 32 slots a replica.  The
+    controller's ticks are timed on the host clock (seconds, appended to
+    ``ctl.tick_s``)."""
+    opts = {"slots": DECODE_SLOTS, "prefill_buckets": DECODE_BUCKETS,
+            "max_queue": DECODE_QUEUE, "kv_layout": "dense"}
+    pool = mx.serving.lm_pool(cfg, params, n_replicas=n_replicas,
+                              devices=[dev] * n_replicas, engine_opts=opts)
+    reg = mx.serving.ModelRegistry(ctx=mx.cpu())
+    reg.register("lm", pool)
+    ctl = mx.serving.FleetController(
+        reg, fleet=mx.serving.DeviceFleet([dev], per_device=per_device),
+        interval_ms=FLEET_INTERVAL_MS, **ctl_opts)
+    ctl.tick_s, tick = [], ctl.tick
+
+    def timed_tick(now=None):
+        t = time.perf_counter()
+        try:
+            tick(now)
+        finally:
+            ctl.tick_s.append(time.perf_counter() - t)
+
+    ctl.tick = timed_tick
+    ctl.start()
+    server = mx.serving.ServingHTTPServer(reg, port=0).start()
+    return pool, reg, ctl, server
+
+
+def _tick_cost(label, ctl, wall):
+    """Prints what the controller's ticks took on the host: the median
+    and the longest tick (a scale-up or a replacement builds and warms a
+    replica inside its tick), and the share of the run's wall time in
+    ticks."""
+    ts = sorted(ctl.tick_s)
+    if not ts:
+        return {}
+    out = {"ticks": len(ts), "tick_median_ms": 1e3 * ts[len(ts) // 2],
+           "tick_max_ms": 1e3 * ts[-1], "tick_share": sum(ts) / wall}
+    print("fleet %s: controller %d ticks, median %.3f ms, longest %.1f ms, "
+          "%.2f%% of the run's wall time in ticks"
+          % (label, out["ticks"], out["tick_median_ms"], out["tick_max_ms"],
+             100 * out["tick_share"]), flush=True)
+    return out
+
+
+def _fleet_close(reg, ctl, server):
+    server.stop()
+    ctl.close()
+    reg.close()
+
+
+def _run_stats(label, traffic, results, t0, dev):
+    """Tokens/s, TTFT p50/p99 and peak memory of a run; prints them."""
+    done = [r for r in results if r.get("status") == 200]
+    gen = sum(len(r["tokens"]) for r in done)
+    wall = max(r["recv"] for r in results) - t0
+    ttft = np.array([r["ttft_ms"] for r in done], np.float64)
+    stats = {"tokens_per_s": gen / wall, "wall_s": wall,
+             "ttft_p50_ms": float(np.percentile(ttft, 50)),
+             "ttft_p99_ms": float(np.percentile(ttft, 99)),
+             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+             "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
+    print("fleet %s: %d of %d requests served, %d tokens in %.3f s = %.1f "
+          "tokens/s; TTFT p50 %.2f ms, p99 %.2f ms; peak memory %.3f GB "
+          "allocated, %.3f GB reserved"
+          % (label, len(done), len(traffic), gen, wall,
+             stats["tokens_per_s"], stats["ttft_p50_ms"],
+             stats["ttft_p99_ms"], stats["peak_gb"],
+             stats["peak_reserved_gb"]), flush=True)
+    return stats
+
+
+def _print_decisions(label, decisions, t0):
+    for d in decisions:
+        extra = {k: v for k, v in d.items() if k not in ("t", "model",
+                                                          "action")}
+        print("fleet %s decision at %+.3f s: %s %s"
+              % (label, d["t"] - t0, d["action"], json.dumps(
+                  extra, sort_keys=True, default=str)), flush=True)
+
+
+def _shed_by(mx, reason):
+    c = mx.telemetry.snapshot()["counters"].get("serving.shed.count", {})
+    return c.get("model=lm,reason=%s" % reason, 0)
+
+
+def fleet_autoscale_run(mx, cfg, params, dev, traffic, refs, streams):
+    """Run E (see the module docstring)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the run's reserved peak is its own
+    torch.cuda.reset_peak_memory_stats(dev)
+    pool, reg, ctl, server = _fleet_stack(
+        mx, cfg, params, dev, 1, {"policy_opts": {
+            "slo_ttft_ms": FLEET_SLO_MS, "breach_ticks": FLEET_BREACH_TICKS,
+            "slack_ticks": FLEET_SLACK_TICKS,
+            "cooldown_s": FLEET_COOLDOWN_S,
+            "max_replicas": FLEET_MAX_REPLICAS}})
+    watch = _FleetWatch(pool)
+    try:
+        shed0 = _shed_total(mx)
+        offsets = fleet_arrivals(len(traffic), FLEET_BURST, FLEET_TRICKLE_AT,
+                                 FLEET_TRICKLE_S)
+        results, t0 = fleet_clients(server.url, traffic, offsets)
+        bad = [(i, r) for i, r in enumerate(results)
+               if r.get("status") != 200 or r.get("error")]
+        if bad or _shed_total(mx) != shed0:
+            raise RuntimeError("fleet run E: %d requests failed (first %r), "
+                               "%d shed" % (len(bad), bad[:1],
+                                            _shed_total(mx) - shed0))
+        stats = _run_stats("run E (autoscale)", traffic, results, t0, dev)
+        stats.update(_tick_cost("run E", ctl, stats["wall_s"]))
+        burst_done = max(r["recv"] for r in results[:FLEET_BURST])
+        _wait_until(lambda: watch.live() == 1,
+                    lambda: "run E never scaled back to one replica (%s)"
+                    % replica_timeline(watch.samples)[-5:])
+        time.sleep(0.1)
+        watch.close()
+        decisions = ctl.decisions()
+        fleet, health = _print_gets("run E", server.url)
+    finally:
+        watch.close()
+        _fleet_close(reg, ctl, server)
+    _print_decisions("run E", decisions, t0)
+    migrated = {int(e["replica"]): e["migrated"]
+                for e in mx.telemetry.events_recent(10000)
+                if e["event"] == "serving.pool.replica_remove"
+                and e["ts"] >= t0}
+    timeline = replica_timeline(watch.samples)
+    print("fleet run E: replicas over time %s" % ", ".join(
+        "%+.2f s: %d" % (t - t0, n) for t, n in timeline), flush=True)
+    check_timeline("run E", timeline, 1, 2, 1)
+    ups, downs = check_autoscale(decisions, migrated, burst_done)
+    breaches = [d for d in decisions if d["action"] == "slo_breach"]
+    to_serving = []
+    for d in ups:
+        seen = [b["t"] for b in breaches if b["t"] <= d["t"]]
+        first = watch.first_token.get(d["replica"])
+        to_serving.append(dict(
+            replica=d["replica"],
+            breach_to_decision_s=(d["t"] - seen[-1]) if seen else None,
+            breach_to_serving_s=(first - seen[-1]) if seen and first
+            else None,
+            decision_to_serving_s=(first - d["t"]) if first else None))
+    print("fleet run E: %d scale-ups, %d scale-downs (migrated %s); the "
+          "burst's last session ended at %+.3f s; added replicas %s"
+          % (len(ups), len(downs), migrated, burst_done - t0,
+             json.dumps(to_serving)), flush=True)
+    if not any(x["decision_to_serving_s"] is not None for x in to_serving):
+        raise RuntimeError("fleet run E: no added replica served a token")
+    if fleet["models"]["lm"]["quarantined"] or not health["fleet"]["running"]:
+        raise RuntimeError("fleet run E: /fleet or /healthz is wrong")
+    ties = hold_streams("fleet run E", traffic, refs,
+                        [r["tokens"] for r in results], streams,
+                        "autoscaled = run A", whole=True)
+    stats.update(ups=len(ups), downs=len(downs), to_serving=to_serving,
+                 timeline=[(t - t0, n) for t, n in timeline], ties=ties)
+    return stats
+
+
+def fleet_supervision_run(mx, cfg, params, dev, traffic, refs, streams):
+    """Run F (see the module docstring)."""
+    from mxnet_tpu_torch import faults
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the run's reserved peak is its own
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pool, reg, ctl, server = _fleet_stack(
+        mx, cfg, params, dev, DECODE_REPLICAS, {
+            "restart_budget": 1, "backoff_base": 0.1,
+            # supervision only: no SLO to breach, no scaling
+            "policy_opts": {"slo_ttft_ms": 1e9,
+                            "min_replicas": DECODE_REPLICAS,
+                            "max_replicas": DECODE_REPLICAS}})
+    watch = _FleetWatch(pool)
+    second = {}
+
+    def supervise():
+        try:
+            _wait_until(lambda: any(d["action"] == "restart"
+                                    for d in ctl.decisions()),
+                        lambda: "run F: no restart %r" % ctl.describe())
+            second["armed"] = time.time()
+            faults.arm("serving.replica.kill", at=FLEET_KILL2_STEPS)
+            _wait_until(lambda: any(d["action"] == "quarantine"
+                                    for d in ctl.decisions()),
+                        lambda: "run F: no quarantine %r" % ctl.describe())
+        except Exception as e:  # noqa: broad-except — raised below
+            second["error"] = e
+
+    try:
+        faults.arm("serving.replica.kill",
+                   at=DECODE_REPLICAS * FLEET_KILL_STEP)
+        hook = threading.Thread(target=supervise, daemon=True)
+        hook.start()
+        results, t0 = fleet_clients(server.url, traffic,
+                                    [0.0] * len(traffic))
+        hook.join(timeout=FLEET_WAIT_S * 3)
+        faults.disarm()
+        if "error" in second or hook.is_alive():
+            raise RuntimeError("fleet run F: %r" % second.get("error"))
+        bad = [(i, r) for i, r in enumerate(results)
+               if r.get("status") != 200 or r.get("error")]
+        if bad:
+            raise RuntimeError("fleet run F: %d requests failed, first %r"
+                               % (len(bad), bad[0]))
+        stats = _run_stats("run F (supervision)", traffic, results, t0, dev)
+        stats.update(_tick_cost("run F", ctl, stats["wall_s"]))
+        watch.close()
+        decisions = ctl.decisions()
+        fleet, health = _print_gets("run F", server.url)
+        reps = {r.rid: r for r in pool.replicas}
+        # both killed replicas' caches are back on the device: what the
+        # pool holds beyond the shared weights is the replacement's cache
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) - base
+        cache = pool.describe()["kv"]["hbm_bytes"] / len(reps)
+    finally:
+        faults.disarm()
+        watch.close()
+        _fleet_close(reg, ctl, server)
+    _print_decisions("run F", decisions, t0)
+    check_supervision(decisions)
+    restart = [d for d in decisions if d["action"] == "restart"][0]
+    new = reps[restart["new_replica"]]
+    card = fleet["models"]["lm"]
+    if not (card["quarantined"] and card["restarts_used"] == 1
+            and health["fleet"]["models"]["lm"]["quarantined"]
+            and any(d["action"] == "quarantine"
+                    for d in health["fleet"]["decisions"])):
+        raise RuntimeError("fleet run F: /fleet %r or /healthz %r miss the "
+                           "restart or the quarantine"
+                           % (card, health["fleet"]))
+    if new.device != dev or not new.engine.tokens_out \
+            or any(t.device != dev for t in new.engine.state_tensors()):
+        raise RuntimeError("fleet run F: the replacement is not serving on "
+                           "%s" % dev)
+    dead = sorted(r.rid for r in reps.values() if r.dead)
+    moved = sum(r["migrations"] or 0 for r in results
+                if r["migrations"] is not None)
+    kills = [e["ts"] - t0 for e in mx.telemetry.events_recent(10000)
+             if e["event"] == "fault_injected" and e["ts"] >= t0
+             and e["point"] == "serving.replica.kill"]
+    print("fleet run F: kills at %s s; the first kill to the restart "
+          "decision (death noticed, replica removed, its replacement built "
+          "and warmed) %.3f s; memory the pool holds after the quarantine "
+          "beyond the weights %.3f GB, one replica's cache %.3f GB"
+          % (", ".join("%+.3f" % k for k in kills),
+             restart["t"] - t0 - kills[0] if kills else float("nan"),
+             held / 1e9, cache / 1e9), flush=True)
+    if len(kills) != 2 or held > 1.05 * cache:
+        raise RuntimeError("fleet run F: %d kills; %.3f GB held for one "
+                           "replica's %.3f GB cache"
+                           % (len(kills), held / 1e9, cache / 1e9))
+    print("fleet run F: killed at the pool's step %d, replica %d replaced "
+          "by replica %d on %s (restart %+.3f s after the start; its first "
+          "token %+.3f s), the survivor killed %d steps after the restart "
+          "was armed (%+.3f s) and the model quarantined; dead replicas %s; "
+          "streamed sessions report %d migrations"
+          % (DECODE_REPLICAS * FLEET_KILL_STEP, restart["replica"],
+             restart["new_replica"], new.device, restart["t"] - t0,
+             watch.first_token.get(new.rid, float("nan")) - t0,
+             FLEET_KILL2_STEPS, second["armed"] - t0, dead, moved),
+          flush=True)
+    if len(dead) != 1:
+        raise RuntimeError("fleet run F: dead replicas %r" % dead)
+    ties = hold_streams("fleet run F", traffic, refs,
+                        [r["tokens"] for r in results], streams,
+                        "supervised = run A", whole=True)
+    stats.update(restart_s=restart["t"] - t0, ties=ties, held_gb=held / 1e9,
+                 kills=kills)
+    return stats
+
+
+def fleet_shed_run(mx, cfg, params, dev, traffic, refs, streams, seed):
+    """Run G (see the module docstring)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the run's reserved peak is its own
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = len(traffic)
+    priorities = fleet_priorities(n, seed)
+    # a full fleet: as many replicas as the card takes and the policy
+    # allows
+    pool, reg, ctl, server = _fleet_stack(
+        mx, cfg, params, dev, DECODE_REPLICAS, {"policy_opts": {
+            "slo_ttft_ms": FLEET_G_SLO_MS, "breach_ticks": FLEET_BREACH_TICKS,
+            "max_replicas": DECODE_REPLICAS,
+            "min_replicas": DECODE_REPLICAS}}, per_device=DECODE_REPLICAS)
+    try:
+        shed0 = _shed_by(mx, "priority")
+        results, t0 = fleet_clients(server.url, traffic,
+                                    [FLEET_G_GAP_S * i for i in range(n)],
+                                    priorities)
+        _wait_until(lambda: not pool.admission_state()[2],
+                    lambda: "run G: shed pressure never lifted")
+        probe = _http_generate(server.url, dict(traffic[0],
+                                                priority=FLEET_LOW))
+        decisions = ctl.decisions()
+        fleet, health = _print_gets("run G", server.url)
+        shed_count = _shed_by(mx, "priority") - shed0
+        tick_cost = _tick_cost("run G", ctl, time.time() - t0)
+    finally:
+        _fleet_close(reg, ctl, server)
+    _print_decisions("run G", decisions, t0)
+    events = [e for e in mx.telemetry.events_recent(10000)
+              if e["event"] == "serving.pool.shed_pressure" and e["ts"] >= t0]
+    spans = pressure_windows(events, time.time())
+    shed, low_done = check_shed(results, priorities, spans)
+    # the pressure lifts once the breach clears: the last event turns it
+    # off (in a quiet stretch of the burst, or after it)
+    if shed_count != len(shed) or not events or events[-1]["on"]:
+        raise RuntimeError("fleet run G: %d priority sheds counted for %d "
+                           "refusals; pressure events %r"
+                           % (shed_count, len(shed), events))
+    if probe.get("status") != 200 or probe["tokens"] != streams[0]:
+        raise RuntimeError("fleet run G: the priority-%d probe after the "
+                           "pressure lifted failed: %r" % (FLEET_LOW, probe))
+    stats = _run_stats("run G (shed at capacity)", traffic, results, t0, dev)
+    print("fleet run G: pressure on %s; %d of %d clients under the floor "
+          "shed (429, reason priority), %d of them served (sent outside the "
+          "pressure), every client at priority >= %d served; a priority-%d "
+          "probe after the pressure lifted served"
+          % (", ".join("%+.3f..%+.3f s" % (a - t0, b - t0) for a, b in spans),
+             len(shed), priorities.count(FLEET_LOW), len(low_done),
+             FLEET_FLOOR, FLEET_LOW), flush=True)
+    served = [i for i, r in enumerate(results) if r.get("status") == 200]
+    ties = hold_streams("fleet run G", [traffic[i] for i in served],
+                        [refs[i] for i in served],
+                        [results[i]["tokens"] for i in served],
+                        [streams[i] for i in served],
+                        "served under shedding = run A", whole=True)
+    stats.update(shed=len(shed), low_served=len(low_done),
+                 pressure_spans=len(spans), ties=ties, **tick_cost)
+    return stats
+
+
+def fleet_phase(mx, seed, reuse):
+    """Phase 16 (see the module docstring)."""
+    dev = torch.device("cuda", 0)
+    cfg, params = reuse["cfg"], reuse["params"]
+    traffic, refs, streams = reuse["traffic"], reuse["refs"], reuse["streams"]
+    t_phase = time.perf_counter()
+    mx.telemetry.enable()
+    out = {"autoscale": fleet_autoscale_run(mx, cfg, params, dev, traffic,
+                                            refs, streams)}
+    sub = slice(None, None, FLEET_STRIDE)
+    out["supervision"] = fleet_supervision_run(
+        mx, cfg, params, dev, traffic[sub], refs[sub], streams[sub])
+    out["shed"] = fleet_shed_run(mx, cfg, params, dev, traffic[sub],
+                                 refs[sub], streams[sub], seed)
+    print("fleet phase: %.1f s" % (time.perf_counter() - t_phase), flush=True)
     return out
 
 
@@ -4013,7 +4634,8 @@ def main():
     lstm_launches = lstm_training_phase(mx, rk, args.seed)
     lstm_parity_phase(mx, args.seed)
     mnist_phase(mx, args.seed)
-    decode_phase(mx, args.seed)
+    decode = decode_phase(mx, args.seed)
+    fleet_phase(mx, args.seed, decode.pop("reuse"))
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"

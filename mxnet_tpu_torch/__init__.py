@@ -25,6 +25,7 @@ from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 
 from . import telemetry
+from . import faults
 from . import ops
 from . import ndarray
 from . import ndarray as nd
@@ -56,7 +57,7 @@ from . import models
 from . import rnn
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "telemetry", "ops", "nd", "ndarray", "sym", "symbol",
+           "num_gpus", "telemetry", "faults", "ops", "nd", "ndarray", "sym", "symbol",
            "Symbol", "Variable", "AttrScope", "Executor",
            "Predictor", "predict", "serving", "initializer", "init",
            "lr_scheduler", "optimizer", "metric", "callback", "io", "random",

@@ -75,14 +75,28 @@ def _fsync_dir(path):
         os.close(fd)
 
 
-def atomic_write(path, write_fn, durable=True):
+def atomic_write(path, write_fn, fault_point=None, durable=True):
     """Crash-safe file write: ``write_fn(tmp_path)`` -> fsync -> atomic
     rename onto ``path``.  A reader sees the old content (or nothing) or
-    the complete new content, never a half-written file.  ``durable=False``
-    skips the fsyncs: the rename stays atomic against process death."""
+    the complete new content, never a half-written file.  ``fault_point``
+    names a :mod:`~mxnet_tpu_torch.faults` point: when it fires, the temp
+    file is truncated to half and :class:`~mxnet_tpu_torch.faults.
+    FaultInjected` raised, the state a host dying mid-write leaves (the
+    rename never happens, the previous ``path`` stays whole).
+    ``durable=False`` skips the fsyncs: the rename stays atomic against
+    process death."""
+    from . import faults as _faults  # lazy: faults imports base
+
     tmp = "%s.tmp-%d" % (path, os.getpid())
     try:
         write_fn(tmp)
+        if fault_point is not None and _faults.should_fire(fault_point):
+            size = os.path.getsize(tmp)
+            with open(tmp, "r+b") as f:
+                f.truncate(max(0, size // 2))
+            raise _faults.FaultInjected(
+                "fault %r: write of %s killed mid-file"
+                % (fault_point, path))
         if durable:
             fd = os.open(tmp, os.O_RDONLY)
             try:
@@ -92,6 +106,8 @@ def atomic_write(path, write_fn, durable=True):
         os.replace(tmp, path)
         if durable:
             _fsync_dir(path)
+    except _faults.FaultInjected:
+        raise  # a simulated crash leaves the truncated temp file behind
     except BaseException:
         try:
             os.unlink(tmp)
@@ -100,12 +116,13 @@ def atomic_write(path, write_fn, durable=True):
         raise
 
 
-def atomic_write_bytes(path, data, mode="wb", durable=True):
+def atomic_write_bytes(path, data, mode="wb", fault_point=None,
+                       durable=True):
     """:func:`atomic_write` of a ready blob."""
     def _write(tmp):
         with open(tmp, mode) as f:
             f.write(data)
-    atomic_write(path, _write, durable=durable)
+    atomic_write(path, _write, fault_point=fault_point, durable=durable)
 
 
 class NameManager:

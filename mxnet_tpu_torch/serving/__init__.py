@@ -14,18 +14,29 @@ continuous-batching autoregressive tier.
   circuit breakers and session failover;
 * :mod:`~mxnet_tpu_torch.serving.registry` — the versioned registry, with
   pointer-flip ``register`` swaps of decode pools;
+* :mod:`~mxnet_tpu_torch.serving.controller` — the fleet control plane:
+  SLO-driven autoscaling, placement over the CUDA devices, replacement
+  of dead replicas under a restart budget, priority shedding at fleet
+  capacity;
 * :mod:`~mxnet_tpu_torch.serving.frontend` — the in-process handle and
   the stdlib HTTP endpoint (``/predict``, ``/generate``, ``/models``,
-  ``/healthz``, ``/metrics``).
+  ``/healthz``, ``/fleet``, ``/metrics``).
 
-The JAX package's fleet controller (``serving/controller.py``) is not
-ported yet.
+A controller attaches to a registry in its constructor; on the CPU::
+
+    pool = lm_pool(cfg, params, n_replicas=2, devices=["cpu"], ...)
+    reg = ModelRegistry(ctx=mx.cpu()); reg.register("lm", pool)
+    ctl = FleetController(reg, fleet=DeviceFleet(["cpu"], per_device=3))
+    ctl.start()   # or ctl.tick(now) to step it by hand
 """
 
 from .batcher import (BATCH_SIZE_BUCKETS, LATENCY_BUCKETS, DeadlineExceeded,
                       DynamicBatcher, Future, InvalidRequest, Overloaded)
 from .decode import (TTFT_BUCKETS, DecodeEngine, GenerateSession,
                      ReplicaKilled)
+from .controller import (HOLD, SCALE_DOWN, SCALE_UP, SHED, UNSHED,
+                         AutoscalePolicy, DeviceFleet, FleetController,
+                         Observation)
 from .frontend import ServingHandle, ServingHTTPServer
 from .kvblocks import (BlockAllocator, KVBlockPool, KVBlocksExhausted,
                        PrefixCache)
@@ -42,4 +53,7 @@ __all__ = ["DynamicBatcher", "Future", "Overloaded", "DeadlineExceeded",
            "BlockAllocator", "PrefixCache", "KVBlockPool",
            "KVBlocksExhausted",
            "ModelRegistry", "ServedModel", "UnknownModel", "save_model",
-           "MANIFEST", "ServingHandle", "ServingHTTPServer"]
+           "MANIFEST", "ServingHandle", "ServingHTTPServer",
+           "Observation", "AutoscalePolicy", "DeviceFleet",
+           "FleetController", "HOLD", "SCALE_UP", "SCALE_DOWN", "SHED",
+           "UNSHED"]

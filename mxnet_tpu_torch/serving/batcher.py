@@ -8,7 +8,8 @@ bucket, so the predictor's shape-keyed executor cache sees only
 ``len(buckets)`` shapes.  Load discipline: a request whose deadline passes
 while it waits is shed with :class:`DeadlineExceeded`; a submit that would
 push the queue past ``max_queue_depth`` rows fails fast with
-:class:`Overloaded`.
+:class:`Overloaded`.  A dispatch that raises (the ``serving.dispatch``
+fault point included) fails its own batch; the worker serves on.
 
 Telemetry (labels ``model=<name>``): ``serving.request.count``,
 ``serving.shed.count{reason=...}``, ``serving.queue.depth``,
@@ -24,6 +25,7 @@ from collections import deque
 
 import numpy as np
 
+from .. import faults as _faults
 from .. import telemetry as _telemetry
 from ..base import MXNetError
 
@@ -340,6 +342,10 @@ class DynamicBatcher:
                                model=self.name)
             _telemetry.observe("serving.batch.size", n,
                                buckets=BATCH_SIZE_BUCKETS, model=self.name)
+            if _faults.should_fire("serving.dispatch"):
+                raise _faults.FaultInjected(
+                    "fault 'serving.dispatch': device dispatch of model "
+                    "%r killed" % self.name)
             outs = self._dispatch_fn(rows)
             outs = [np.asarray(o) for o in
                     (outs if isinstance(outs, (list, tuple)) else [outs])]

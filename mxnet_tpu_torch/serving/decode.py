@@ -36,6 +36,13 @@ joins the running batch), retired on EOS or length, and stream their
 tokens through per-session callbacks.  Inactive slots ride along at fixed
 shape.  Each engine issues its device work on its own CUDA stream, so two
 replicas on one card do not wait on each other's host reads.
+
+Supervision hooks: the loop stamps a heartbeat every iteration
+(:meth:`DecodeEngine.heartbeat_age`), and the step consults two fault
+points before it launches (:mod:`~mxnet_tpu_torch.faults`):
+``serving.decode`` fails that one step, ``serving.replica.kill`` closes
+the engine for good (:class:`ReplicaKilled`: the worker exits, the cache
+is released, the held sessions migrate).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import faults as _faults
 from .. import random as _random
 from .. import telemetry as _telemetry
 from ..base import MXNetError
@@ -118,6 +126,29 @@ def sample_tokens(logits, temps, seeds, positions, vocab_idx):
     return torch.where(temps > 0.0, drawn, greedy)
 
 
+#: CUDA streams of closed engines, by device.  PyTorch caches freed device
+#: blocks per stream, and cuBLAS a workspace per stream, for the life of
+#: the process: an engine that replaces a closed one on the same card
+#: takes the closed one's stream, so it reuses both instead of allocating
+#: beside them.  Process-wide, as the allocator is.
+_idle_streams = {}
+_idle_lock = threading.Lock()
+
+
+def _take_stream(device):
+    with _idle_lock:
+        idle = _idle_streams.get(device)
+        if idle:
+            return idle.pop()
+    return torch.cuda.Stream(device)
+
+
+def _give_back_stream(device, stream):
+    stream.synchronize()
+    with _idle_lock:
+        _idle_streams.setdefault(device, []).append(stream)
+
+
 def resolve_device(device):
     """``None`` -> ``cuda:0`` (raising without a card); a context, string
     or ``torch.device`` -> that device.  A CUDA device that is not there
@@ -136,9 +167,11 @@ def resolve_device(device):
 
 
 class ReplicaKilled(MXNetError):
-    """A replica was hard-killed mid-generation: the engine is permanently
-    closed and its sessions must migrate (the pool treats this as an
-    instant circuit-open)."""
+    """A replica was hard-killed mid-generation (the
+    ``serving.replica.kill`` fault point): the engine is permanently
+    closed, its device state released, and its sessions must migrate (the
+    pool treats this as an instant circuit-open and marks the replica
+    dead)."""
 
 
 class GenerateSession:
@@ -313,7 +346,7 @@ class DecodeEngine:
         self.max_queue = int(max_queue)
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
-        self._stream = torch.cuda.Stream(self._device) if self._cuda \
+        self._stream = _take_stream(self._device) if self._cuda \
             else None
         with self._on_stream():
             self._params = _tlm.params_to(params, self._device)
@@ -328,6 +361,10 @@ class DecodeEngine:
         self._draining = False
         self._closed = False
         self._thread = None
+        #: the last worker started (``stop`` clears ``_thread`` even when
+        #: a wedged worker outlives its joins)
+        self._worker = None
+        self._beat = time.monotonic()
         #: total decode steps (tests pin continuous admission on it)
         self.steps = 0
         #: total generated tokens
@@ -691,6 +728,17 @@ class DecodeEngine:
         return sess
 
     # -- introspection -----------------------------------------------------
+    def heartbeat_age(self):
+        """Seconds since the serve loop last proved liveness, or None
+        when no worker is running.  The loop stamps every iteration (an
+        idle engine waits 20 ms between them), so only a wedged step or a
+        dead worker goes stale: the fleet controller's per-replica
+        liveness probe."""
+        with self._cond:
+            if self._thread is None:
+                return None
+            return time.monotonic() - self._beat
+
     def pending_rows(self):
         """Queued plus active sessions — the graceful-drain quiescence
         probe (one row == one sequence)."""
@@ -738,7 +786,8 @@ class DecodeEngine:
                 self._boot_state = self._fresh_state()
             self._draining = False
             self._running = True
-            self._thread = threading.Thread(
+            self._beat = time.monotonic()
+            self._thread = self._worker = threading.Thread(
                 target=self._serve_loop,
                 name="decode-%s-%s" % (self.name, self.replica),
                 daemon=True)
@@ -815,19 +864,37 @@ class DecodeEngine:
         with self._cond:
             self._closed = True
         clean = self.stop(drain=drain)
-        with self._cond:
-            if self._thread is None:
-                self._boot_state = self._live = None
+        worker = self._worker
+        if worker is None or not worker.is_alive():
+            # no worker is left to release the state at its loop's end
+            self._release_state()
         return clean
+
+    def _release_state(self):
+        """Drop the device state of a closed engine and give its stream
+        back for the next engine on this card (with the blocks the
+        allocator cached for it).  Called once nothing of this engine can
+        use the stream again: by the worker as its loop ends, or by
+        ``close`` when no worker is alive.  Idempotent."""
+        with self._cond:
+            self._boot_state = self._live = None
+            stream, self._stream = self._stream, None
+        if stream is not None:
+            _give_back_stream(self._device, stream)
 
     def _serve_loop(self):
         with self._cond:
             state = self._boot_state
             self._boot_state = None
-        while True:
+        while state is not None:
             state = self._tick(state)
-            if state is None:
-                return
+        with self._cond:
+            closed = self._closed
+        if closed:
+            # closed or hard-killed: the state is unreferenced once the
+            # loop is out, so the cache is free (and the stream idle)
+            # before the pool can replace the replica
+            self._release_state()
 
     def _tick(self, state):
         """One loop iteration: the admission scan, the admissions, then
@@ -840,6 +907,9 @@ class DecodeEngine:
         with self._cond:
             if not self._running:
                 return None
+            # the liveness heartbeat (heartbeat_age): every iteration,
+            # idle ones included
+            self._beat = time.monotonic()
             free = [i for i, x in enumerate(self._slot_sessions)
                     if x is None]
             # walk the WHOLE queue every iteration: abandoned or expired
@@ -1025,6 +1095,21 @@ class DecodeEngine:
                     self._retire(sess, error=e)
         t0 = time.perf_counter()
         try:
+            if _faults.should_fire("serving.decode"):
+                raise _faults.FaultInjected(
+                    "fault 'serving.decode': decode step of model %r "
+                    "killed" % self.name)
+            if _faults.should_fire("serving.replica.kill"):
+                # a hard replica death, not a transient step fault: the
+                # engine closes for good (the worker exits, submits fail
+                # fast, rewarm refuses) and every held session goes down
+                # the migration path
+                with self._cond:
+                    self._closed = True
+                    self._running = False
+                raise ReplicaKilled(
+                    "fault 'serving.replica.kill': replica %s of model %r "
+                    "hard-killed mid-generation" % (self.replica, self.name))
             state, packed = self._step_fn(state, *self._step_inputs(keep))
             packed = self._read(packed)  # THE one host read of the step
         except Exception as e:  # noqa: broad-except — a failed step
@@ -1083,7 +1168,9 @@ class DecodeEngine:
         """A failed step or prefill may leave the state half-written:
         every held session goes to the pool's migration hook (or, with no
         pool above, gets the error), the state restarts from zeros, and
-        the worker survives to serve the queue."""
+        the worker survives to serve the queue.  A hard-killed engine
+        (:class:`ReplicaKilled`) returns None instead: its worker ends and
+        releases the device state."""
         _telemetry.inc("serving.error.count", model=self.name)
         with self._cond:
             held = [x for x in self._slot_sessions if x is not None]
@@ -1108,6 +1195,10 @@ class DecodeEngine:
                 for sess in held:
                     self._finish(sess, error=exc)
         self._occupancy_gauge()
+        if isinstance(exc, ReplicaKilled):
+            # nothing of this engine runs again: no fresh state; the loop
+            # ends and releases this one
+            return None
         return self._fresh_state()
 
     # -- session completion ------------------------------------------------

@@ -27,8 +27,12 @@ over ``http.server`` with these routes:
   buckets, replica states, warm-up status).
 * ``GET /healthz`` — liveness + model/version table + per-model detail
   and the paged pools' KV occupancy.
-* ``GET /fleet`` — 404: no fleet controller is attached (the controller
-  is not ported yet).
+* ``GET /fleet`` — the attached
+  :class:`~mxnet_tpu_torch.serving.controller.FleetController`'s card
+  (running, ticks, per-model quarantine/restart/shedding state, the
+  device fleet's loads and placements, the last decisions); 404 only
+  without a controller.  ``/healthz`` then carries a ``fleet`` summary
+  block.
 * ``GET /metrics`` — the process-wide telemetry registry in Prometheus
   text exposition (``telemetry.prometheus_text``).
 * ``GET /trace/<id>`` — 404: request tracing is not ported yet.

@@ -15,8 +15,10 @@ device; traffic needs N of them behind ONE admission surface.
   pool-level ``Overloaded`` past ``max_outstanding``
   (``MXNET_POOL_MAX_OUTSTANDING``), priority-aware shedding (past the
   priority watermark only requests with ``priority >=
-  priority_floor`` are admitted), and per-tenant quotas
-  (:class:`QuotaExceeded`, shed reason ``quota``);
+  priority_floor`` are admitted; under the fleet controller's shed
+  pressure, :meth:`ReplicaPool.set_shed_pressure`, from the first
+  outstanding request), and per-tenant quotas (:class:`QuotaExceeded`,
+  shed reason ``quota``);
 * **replica fault domains** — a per-replica CIRCUIT BREAKER over the
   step-outcome stream: ``quarantine_after`` consecutive failures OR an
   error rate past ``MXNET_POOL_CIRCUIT_THRESHOLD`` over the rolling
@@ -226,6 +228,8 @@ class ReplicaPool:
         self._migrations_out = {}
         self._migrations_in = {}
         self._failovers = 0
+        #: the fleet controller's shed pressure (set_shed_pressure)
+        self._pressure = False
         if any(float(w) <= 0 for w in weights):
             # validate BEFORE building engines: a bad weight must not
             # cost k warmed-and-leaked replicas
@@ -337,7 +341,7 @@ class ReplicaPool:
                 raise MXNetError("replica pool %r is closed" % self.name)
             rid = self._next_rid
             self._next_rid += 1
-            dev = device if device is not None \
+            dev = resolve_device(device) if device is not None \
                 else self._devices[rid % len(self._devices)]
         engine = self._factory(dev, str(rid))
         if hasattr(engine, "set_health_hooks"):
@@ -454,6 +458,33 @@ class ReplicaPool:
                   len(orphans) if migrate else 0)
         return clean
 
+    def set_shed_pressure(self, on):
+        """The fleet controller's priority-shedding lever, for a fleet at
+        its capacity: while on, requests under the priority floor shed
+        typed (reason ``priority``) from the FIRST outstanding request
+        instead of from the watermark.  In-flight generations are never
+        touched: this is admission control only.  Returns the previous
+        setting."""
+        on = bool(on)
+        with self._lock:
+            prev, self._pressure = self._pressure, on
+        if prev != on:
+            _telemetry.set_gauge("serving.pool.shed_pressure", int(on),
+                                 model=self.name)
+            _telemetry.event("serving.pool.shed_pressure",
+                             model=self.name, on=on)
+            _log.warning("pool %r: shed pressure %s", self.name,
+                         "ON (priority floor applies from the first "
+                         "request)" if on else "off")
+        return prev
+
+    def admission_state(self):
+        """``(outstanding, max_outstanding, shed_pressure)``: the
+        controller's per-tick load read (no engine lock taken)."""
+        with self._lock:
+            return (self._total_outstanding, self._max_outstanding,
+                    self._pressure)
+
     def _make_error_hook(self, rid):
         return lambda exc: self._note_step_error(rid, exc)
 
@@ -509,8 +540,9 @@ class ReplicaPool:
 
         Shedding order (all typed, all counted under
         ``serving.shed.count{model=,reason=}``): pool ``Overloaded``
-        past ``max_outstanding``; ``priority`` past the watermark for
-        requests under the floor; ``quota`` for tenants at their bound;
+        past ``max_outstanding``; ``priority`` past the watermark (or
+        under shed pressure, from the first request) for requests under
+        the floor; ``quota`` for tenants at their bound;
         then the chosen replica's own engine admission applies.
         ``on_event`` (optional ``callable(kind, info)``) receives a
         ``"failover"`` notification at every migration boundary — the
@@ -526,15 +558,18 @@ class ReplicaPool:
                     "pool %r overloaded: %d outstanding >= bound %d"
                     % (self.name, self._total_outstanding,
                        self._max_outstanding))
-            if self._total_outstanding >= self._watermark \
+            if (self._pressure
+                    or self._total_outstanding >= self._watermark) \
                     and int(priority) < self._priority_floor:
                 _telemetry.inc("serving.shed.count", model=self.name,
                                reason="priority")
                 raise Overloaded(
-                    "pool %r past its priority watermark (%d/%d): "
+                    "pool %r past its priority watermark (%d/%d)%s: "
                     "priority %d < floor %d shed"
                     % (self.name, self._total_outstanding,
-                       self._watermark, priority, self._priority_floor))
+                       self._watermark,
+                       " under fleet shed pressure" if self._pressure
+                       else "", priority, self._priority_floor))
             quota = self._quotas.get(tenant_key, self._quotas.get("*"))
             if quota is not None \
                     and self._tenant_out.get(tenant_key, 0) >= int(quota):
@@ -917,6 +952,7 @@ class ReplicaPool:
             total = self._total_outstanding
             tenants = dict(self._tenant_out)
             failovers = self._failovers
+            pressure = self._pressure
             max_out = self._max_outstanding
         # pool-level KV storage rollup (per-replica cards keep the
         # detail): /healthz reads occupancy from here without walking
@@ -944,6 +980,7 @@ class ReplicaPool:
                 "outstanding": total,
                 "max_outstanding": max_out,
                 "priority_floor": self._priority_floor,
+                "shed_pressure": pressure,
                 "quotas": dict(self._quotas),
                 "retry_budgets": dict(self._retry_budgets),
                 "failovers": failovers,

@@ -81,7 +81,10 @@ def save_model(model_dir, symbol_json, param_blob, input_shape,
         with open(tmp, "w") as f:
             json.dump(manifest, f, indent=1, sort_keys=True)
 
-    atomic_write(os.path.join(model_dir, MANIFEST), _write)
+    # a publisher dying here leaves the previous manifest (and the payloads
+    # it names) whole: readers keep loading the old version
+    atomic_write(os.path.join(model_dir, MANIFEST), _write,
+                 fault_point="serving.model.write")
     for fname in os.listdir(model_dir):
         if fname in (sym_name, par_name, MANIFEST):
             continue
@@ -212,10 +215,17 @@ class ModelRegistry:
                             "max_queue_depth": max_queue_depth}
         self._models = {}
         self._lock = threading.Lock()
-        #: the fleet controller the frontend's ``/fleet`` reads; none is
-        #: ported yet, so always None (the JAX package's uncontrolled
-        #: registry)
+        #: the attached :class:`~mxnet_tpu_torch.serving.controller.
+        #: FleetController` (None while the registry runs uncontrolled);
+        #: the frontend's ``/fleet`` route and ``/healthz`` block read it
         self.controller = None
+
+    def attach_controller(self, controller):
+        """Attach the fleet controller that manages this registry's
+        decode pools (the controller's constructor calls this); the
+        frontend reads it as ``registry.controller``."""
+        self.controller = controller
+        return controller
 
     def load(self, name, symbol_json, param_blob, input_shape,
              data_name="data", buckets=(1, 8, 32), version=None):
@@ -277,6 +287,17 @@ class ModelRegistry:
         _telemetry.inc("serving.model.loads", model=name)
         _telemetry.event("serving.model.load", model=name,
                          version=servable.version)
+        controller = self.controller
+        if controller is not None:
+            # the pointer flip replaced the pool object: the controller
+            # drops the old pool's autoscale and placement state and
+            # adopts the successor at its next tick.  A controller bug
+            # must not fail the swap.
+            try:
+                controller.on_register(name, servable)
+            except Exception:  # noqa: broad-except — the swap is done
+                logging.warning("serving: fleet controller on_register "
+                                "hook failed for %r", name, exc_info=True)
         logging.info("serving: servable %r v%d registered (%s)",
                      name, servable.version, type(servable).__name__)
         return servable

@@ -21,7 +21,7 @@ from collections import deque
 __all__ = ["enabled", "enable", "disable", "reset", "inc", "set_gauge",
            "observe", "event", "snapshot", "prometheus_text",
            "counter_total", "gauge_value", "hist_quantile", "hist_state",
-           "events_recent"]
+           "quantile_from_counts", "events_recent"]
 
 #: default histogram bucket upper bounds (seconds)
 DEFAULT_BUCKETS = (1e-5, 1e-4, 1e-3, 1e-2, 0.1, 1.0, 10.0, 60.0)
@@ -185,6 +185,31 @@ def hist_state(name, **labels):
             return None
         return {"buckets": tuple(h.buckets), "counts": list(h.counts),
                 "count": h.count, "sum": h.sum, "min": h.min, "max": h.max}
+
+
+def quantile_from_counts(buckets, counts, q, lo=None, hi=None):
+    """:func:`hist_quantile`'s estimator over caller-supplied bucket counts
+    (the delta of two :func:`hist_state` reads: the fleet controller's
+    windowed TTFT p99).  ``lo`` / ``hi`` cap the first and the overflow
+    bucket as the observed min/max do; they default to 0 and the last
+    finite bound.  None when the counts are empty."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    lo = 0.0 if lo is None else float(lo)
+    hi = float(buckets[-1]) if hi is None else float(hi)
+    target = q * total
+    acc = 0
+    cur = lo
+    for b, c in zip(buckets, counts):
+        if acc + c >= target:
+            if c == 0:
+                return min(cur, hi)
+            frac = (target - acc) / c
+            return min(cur + (min(b, hi) - cur) * max(0.0, frac), hi)
+        acc += c
+        cur = max(cur, b)
+    return hi  # the overflow bucket: capped at hi
 
 
 def _label_str(labels):

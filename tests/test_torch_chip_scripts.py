@@ -212,3 +212,110 @@ def test_step_byte_bound_counts_weights_logits_and_kv():
     assert abs(fixed / 1e9 - 7.869) < 0.01
     assert abs((fixed - live) - 4 * 32 * (1024 - 100) * 2 * 24 * 1024) < 1
     assert smoke.step_bytes(cfg, 32)[1] is None
+
+
+def test_fleet_arrivals_and_priorities():
+    """Phase 16's traffic: run E's burst then a trickle; run G's priority
+    split, half under the pool's floor, seeded."""
+    smoke = _script("chip_smoke")
+    off = smoke.fleet_arrivals(96, 64, 3.0, 30.0)
+    assert len(off) == 96 and off[:64] == [0.0] * 64
+    assert off[64] == 3.0 and max(off) < 33.0
+    assert all(b > a for a, b in zip(off[64:], off[65:]))
+    assert smoke.fleet_arrivals(8, 8, 1.0, 1.0) == [0.0] * 8
+    pr = smoke.fleet_priorities(48, 0)
+    assert pr == smoke.fleet_priorities(48, 0)
+    assert pr != smoke.fleet_priorities(48, 1)
+    assert pr.count(smoke.FLEET_LOW) == pr.count(smoke.FLEET_FLOOR) == 24
+    assert smoke.FLEET_LOW < smoke.FLEET_FLOOR == 5
+    # run F and G's clients: every other of the 96, both temperatures
+    sub = smoke.decode_traffic(0, 96, 50257)[::smoke.FLEET_STRIDE]
+    assert len(sub) == 48 and {r["temperature"] for r in sub} == {0.0, 0.8}
+
+
+def _d(action, t, **kw):
+    return dict(kw, action=action, t=t, model="lm")
+
+
+def test_fleet_replica_timeline_and_its_check():
+    smoke = _script("chip_smoke")
+    tl = smoke.replica_timeline([(0.0, 1), (0.1, 1), (0.2, 2), (0.3, 3),
+                                 (0.4, 3), (0.5, 2), (0.6, 1), (0.7, 1)])
+    assert tl == [(0.0, 1), (0.2, 2), (0.3, 3), (0.5, 2), (0.6, 1)]
+    smoke.check_timeline("E", tl, 1, 2, 1)
+    for bad in ([(0.0, 1)], [(0.0, 1), (1.0, 2)], [(0.0, 2), (1.0, 1)],
+                [(0.0, 1), (0.5, 4), (1.0, 1)]):
+        with pytest.raises(RuntimeError, match="replica count"):
+            smoke.check_timeline("E", bad, 1, 2, 1)
+
+
+def test_fleet_autoscale_and_supervision_checks():
+    smoke = _script("chip_smoke")
+    ok = [_d("slo_breach", 1.0), _d("scale_up", 1.5, replica=1),
+          _d("scale_up", 4.0, replica=2), _d("scale_down", 9.0, replica=2),
+          _d("scale_down", 11.5, replica=1)]
+    ups, downs = smoke.check_autoscale(ok, {2: 0, 1: 7}, burst_done=8.0)
+    assert len(ups) == 2 and len(downs) == 2
+    with pytest.raises(RuntimeError, match="no scale-up"):
+        smoke.check_autoscale(ok[:1] + ok[3:], {1: 7}, 8.0)
+    # the scale-up came after the burst; no scale-down moved anything
+    with pytest.raises(RuntimeError, match="no scale-up"):
+        smoke.check_autoscale(ok, {2: 0, 1: 7}, burst_done=1.2)
+    with pytest.raises(RuntimeError, match="no scale-down"):
+        smoke.check_autoscale(ok, {2: 0, 1: 0}, burst_done=8.0)
+    # a scale-down that moved sessions but came before any scale-up
+    early = [_d("scale_down", 0.5, replica=1)] + ok[1:3]
+    with pytest.raises(RuntimeError, match="no scale-down"):
+        smoke.check_autoscale(early, {1: 7}, burst_done=8.0)
+    smoke.check_supervision([_d("restart", 1.0), _d("slo_breach", 1.5),
+                             _d("quarantine", 2.0)])
+    for acts in (["restart"], ["quarantine"], ["restart", "restart"],
+                 ["restart", "restart_failed", "quarantine"]):
+        with pytest.raises(RuntimeError, match="supervision"):
+            smoke.check_supervision([_d(a, float(i))
+                                     for i, a in enumerate(acts)])
+
+
+def _client(status, sent, recv, error=""):
+    r = {"status": status, "sent": sent, "recv": recv}
+    if status == 200:
+        r["tokens"] = [1]
+    else:
+        r["error"] = error
+    return r
+
+
+def test_fleet_shed_check_holds_refusals_to_the_pressure():
+    smoke = _script("chip_smoke")
+    ev = [{"on": True, "ts": 1.0}, {"on": False, "ts": 3.0},
+          {"on": True, "ts": 4.0}, {"on": False, "ts": 5.0}]
+    spans = smoke.pressure_windows(ev, 99.0)
+    assert spans == [(1.0, 3.0), (4.0, 5.0)]
+    assert smoke.pressure_windows(ev[:3], 9.0) == [(1.0, 3.0), (4.0, 9.0)]
+    shed = ('{"error": "pool past its priority watermark under fleet shed '
+            'pressure: priority 1 < floor 5 shed"}')
+    low, high = smoke.FLEET_LOW, smoke.FLEET_FLOOR
+    results = [_client(200, 0.5, 9.0), _client(429, 1.5, 1.51, shed),
+               _client(200, 1.6, 9.0), _client(200, 3.5, 9.0),
+               _client(429, 4.5, 4.51, shed), _client(200, 6.0, 9.0)]
+    prio = [low, low, high, low, low, low]
+    assert smoke.check_shed(results, prio, spans) == ([1, 4], [0, 3, 5])
+    cases = [
+        # a refusal of a client at the floor
+        (dict(prio=[low, high, high, low, low, low]), "refused outside"),
+        # a refusal while the pressure was off
+        (dict(results=results[:3] + [_client(429, 3.5, 3.51, shed)]
+              + results[4:]), "refused outside"),
+        # a client under the floor admitted well inside a span
+        (dict(results=results[:1] + [_client(200, 1.5, 9.0)] + results[2:]),
+         "admitted"),
+        # a failure of any other kind
+        (dict(results=results[:2] + [_client(500, 1.6, 1.7, "boom")]
+              + results[3:]), "failed"),
+    ]
+    for kw, match in cases:
+        with pytest.raises(RuntimeError, match=match):
+            smoke.check_shed(kw.get("results", results), kw.get("prio", prio),
+                             spans)
+    with pytest.raises(RuntimeError, match="nothing was shed"):
+        smoke.check_shed([_client(200, 0.5, 9.0)], [low], [])

@@ -1472,3 +1472,157 @@ def test_pool_failover_on_the_card(cuda_device):
         assert sum(s.migrations for s in sess) >= 1
     finally:
         pool.close()
+
+
+# -- the fleet control plane over the decode tier -----------------------------
+def _fleet(pool, devices, **kw):
+    from mxnet_tpu_torch.serving import (DeviceFleet, FleetController,
+                                         ModelRegistry)
+
+    reg = ModelRegistry()
+    reg.register("lm", pool)
+    ctl = FleetController(reg, fleet=DeviceFleet(devices, per_device=3),
+                          **kw)
+    return reg, ctl
+
+
+def _wait_for(cond, what, timeout=120):
+    end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < end, what()
+        time.sleep(0.01)
+
+
+@pytest.mark.cuda
+def test_controller_replaces_a_killed_replica_on_the_card(cuda_device):
+    """``serving.replica.kill`` on cuda:0: the killed engine releases its
+    cache before the controller removes it, the sessions finish on the
+    survivor with an uninterrupted pool's streams, and the replacement is
+    built on cuda:0, serves, and leaves the allocated memory where two
+    replicas had it."""
+    from mxnet_tpu_torch import faults
+    from mxnet_tpu_torch.serving import lm_pool
+
+    tlm, cfg, params = _decode_cfg()
+    opts = {"slots": 4, "prefill_buckets": (8, 16)}
+    reqs = [([1, 2, 3, i], dict(max_new_tokens=16, seed=i,
+                                temperature=0.7 * (i % 2)))
+            for i in range(6)]
+    ref = lm_pool(cfg, params, n_replicas=2, engine_opts=opts)
+    try:
+        want = [ref.generate(p, **kw).result(60) for p, kw in reqs]
+    finally:
+        ref.close()
+    pool = lm_pool(cfg, params, n_replicas=2, engine_opts=opts)
+    reg, ctl = _fleet(pool, [cuda_device], interval_ms=30,
+                      backoff_base=0.01)
+    ctl.start()
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda_device)
+        sess = [pool.generate(p, **kw) for p, kw in reqs]
+        # armed once every session is routed (three a replica): the fifth
+        # step from here kills one replica with its three sessions
+        faults.arm("serving.replica.kill", at=5)
+        assert [s.result(60) for s in sess] == want
+        faults.disarm()
+        assert sum(s.migrations for s in sess) == 3
+        _wait_for(lambda: any(d["action"] == "restart"
+                              for d in ctl.decisions()), ctl.describe)
+        live = [r for r in pool.replicas
+                if r.state == "active" and not r.dead]
+        assert len(live) == 2 and live[-1].rid == 2
+        new = live[-1]
+        assert new.device == cuda_device
+        assert all(t.device == cuda_device
+                   for t in new.engine.state_tensors())
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(cuda_device) <= before * 1.02
+        got = [pool.generate(p, **kw) for p, kw in reqs]
+        assert [s.result(60) for s in got] == want
+        assert new.engine.tokens_out > 0
+    finally:
+        faults.disarm()
+        ctl.close()
+        reg.close()
+
+
+@pytest.mark.cuda
+def test_add_replica_is_warmed_before_routing_on_the_card(cuda_device):
+    """The new engine runs every prefill bucket and the step before the
+    pool publishes it: a request sent once the engine is built and warm,
+    but before ``add_replica`` returns, still goes to the old replica;
+    the warm event precedes the ``replica_add`` event."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import lm_pool
+
+    tlm, cfg, params = _decode_cfg()
+    pool = lm_pool(cfg, params, n_replicas=1,
+                   engine_opts={"slots": 4, "prefill_buckets": (8, 16)})
+    telemetry.reset()
+    telemetry.enable()
+    base, early = pool._factory, []
+
+    def factory(device, rid):
+        eng = base(device, rid)
+        early.append(pool.generate([2, 3, 4], max_new_tokens=2))
+        return eng
+
+    pool._factory = factory
+    try:
+        assert pool.add_replica(device="cuda:0") == 1
+        assert early[0].result(60)
+        assert [r.routed for r in pool.replicas] == [1, 0]
+        ev = [(e["event"], e.get("replica"))
+              for e in telemetry.events_recent(5000)
+              if e["event"] in ("serving.decode.warm",
+                                "serving.pool.replica_add")]
+        assert ev.index(("serving.decode.warm", "1")) \
+            < ev.index(("serving.pool.replica_add", "1"))
+        # two at once: the second goes to the new replica
+        two = [pool.generate([5, 7, 9, 2], max_new_tokens=6)
+               for _ in range(2)]
+        pdev = tlm.params_to(params, cuda_device)
+        want = _greedy_ref(tlm, cfg, pdev, [5, 7, 9, 2], 6)
+        assert [s.result(60) for s in two] == [want, want]
+        assert [r.routed for r in pool.replicas] == [2, 1]
+        assert pool.replicas[1].engine.tokens_out == 6
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+        pool.close()
+
+
+@pytest.mark.cuda
+def test_controller_moves_a_replica_between_two_cards(cuda_device):
+    """A rebalancing move adds a replica on the emptier card and drains
+    the busier one by migration.  It needs two cards; a second device is
+    never faked on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("a rebalancing move needs two CUDA devices; this "
+                    "machine has %d" % torch.cuda.device_count())
+    from mxnet_tpu_torch.serving import lm_pool
+
+    tlm, cfg, params = _decode_cfg()
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    opts = {"slots": 4, "prefill_buckets": (8, 16)}
+    pool = lm_pool(cfg, params, n_replicas=2, devices=[d0, d0],
+                   engine_opts=opts)
+    reg, ctl = _fleet(pool, [d0, d1], interval_ms=10_000,
+                      rebalance_every_s=0.0)
+    try:
+        want = [pool.generate([1, 2, 3, i], max_new_tokens=8,
+                              seed=i).result(60) for i in range(4)]
+        sess = [pool.generate([1, 2, 3, i], max_new_tokens=8, seed=i)
+                for i in range(4)]
+        ctl.tick(1.0)
+        assert [s.result(60) for s in sess] == want
+        assert any(d["action"] == "rebalance" for d in ctl.decisions())
+        assert sorted(str(r.device) for r in pool.replicas) \
+            == ["cuda:0", "cuda:1"]
+        moved = [r for r in pool.replicas if r.device == d1][0]
+        assert all(t.device == d1 for t in moved.engine.state_tensors())
+        assert ctl.describe()["fleet"]["loads"] == [1, 1]
+    finally:
+        ctl.close()
+        reg.close()

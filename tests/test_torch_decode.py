@@ -458,3 +458,101 @@ def test_engine_defaults_to_the_card_and_raises_without_one(monkeypatch):
         DecodeEngine(CFG, PARAMS, device="cuda:0", **opts)
     with pytest.raises(mx.MXNetError, match="CUDA"):
         mx.serving.lm_pool(CFG, PARAMS, engine_opts=opts)
+
+
+def test_heartbeat_goes_stale_only_for_a_wedged_or_dead_engine():
+    """An idle engine keeps stamping its heartbeat (its loop waits 20 ms
+    at a time); a step that hangs lets it age; a worker that is gone
+    (hard kill) lets it age for good.  No worker: None."""
+    from mxnet_tpu_torch import faults
+
+    eng = _engine(autostart=False)
+    assert eng.heartbeat_age() is None
+    eng.start()
+    try:
+        # an idle loop stamps every 20 ms; 1 s leaves room for a starved
+        # thread on a loaded host
+        time.sleep(0.3)
+        ages = [eng.heartbeat_age() for _ in range(5)]
+        assert max(ages) < 1.0, ages
+        gate, inside = threading.Event(), threading.Event()
+        base = eng._step_fn
+
+        def wedged(*a):
+            inside.set()
+            assert gate.wait(60)
+            return base(*a)
+
+        eng._step_fn = wedged
+        sess = eng.submit(PROMPT, max_new_tokens=3)
+        assert inside.wait(60)
+        time.sleep(1.2)
+        assert eng.heartbeat_age() >= 1.2
+        eng._step_fn = base
+        gate.set()
+        assert sess.result(60) == _greedy_ref(CFG, PROMPT, 3)
+        time.sleep(0.1)
+        assert eng.heartbeat_age() < 1.0
+        faults.arm("serving.replica.kill", at=1)
+        with pytest.raises(dmod.ReplicaKilled):
+            eng.generate(PROMPT, max_new_tokens=3, timeout=60)
+        faults.disarm()
+        eng._thread.join(60)
+        time.sleep(1.2)
+        assert eng.heartbeat_age() >= 1.2
+    finally:
+        faults.disarm()
+        eng.close(drain=False)
+    assert eng.heartbeat_age() is None
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_replica_kill_closes_the_engine_for_good(layout):
+    """``serving.replica.kill`` at the third step: the held sessions get
+    :class:`ReplicaKilled` (no pool above to migrate them), the worker
+    exits, the device state is released, submits fail fast and ``rewarm``
+    refuses."""
+    from mxnet_tpu_torch import faults
+
+    eng = _engine(kv_layout=layout, kv_block_size=4)
+    try:
+        faults.arm("serving.replica.kill", at=3)
+        sess = [eng.submit(p, max_new_tokens=8) for p in PROMPTS[:2]]
+        for s in sess:
+            with pytest.raises(dmod.ReplicaKilled, match="hard-killed"):
+                s.result(60)
+            assert 1 <= len(s.tokens) <= 3
+        eng._thread.join(60)
+        assert not eng._thread.is_alive()
+        assert eng._live is None and eng.state_tensors() == \
+            [v for p in eng._params.values()
+             for v in (p.values() if isinstance(p, dict) else [p])]
+        assert eng.pending_rows() == 0
+        with pytest.raises(mx.MXNetError, match="closed"):
+            eng.submit(PROMPT, max_new_tokens=2)
+        with pytest.raises(mx.MXNetError, match="closed"):
+            eng.rewarm()
+        with pytest.raises(mx.MXNetError, match="closed"):
+            eng.start()
+        assert faults.hits("serving.replica.kill") == 3
+        assert telemetry.counter_total("serving.error.count") == 1
+    finally:
+        faults.disarm()
+        eng.close(drain=False)
+
+
+def test_decode_fault_fails_one_step_and_the_engine_serves_on():
+    from mxnet_tpu_torch import faults
+
+    eng = _engine()
+    try:
+        faults.arm("serving.decode", at=2)
+        with pytest.raises(faults.FaultInjected, match="serving.decode"):
+            eng.generate(PROMPT, max_new_tokens=6, timeout=60)
+        assert eng.generate(PROMPT, max_new_tokens=6, timeout=60) \
+            == _greedy_ref(CFG, PROMPT, 6)
+        assert telemetry.counter_total("serving.error.count") == 1
+        assert eng.heartbeat_age() is not None
+    finally:
+        faults.disarm()
+        eng.close()

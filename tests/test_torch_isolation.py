@@ -36,7 +36,10 @@ def test_import_loads_no_jax_and_no_mxnet_tpu():
             "mxnet_tpu_torch.models.transformer_lm, "
             "mxnet_tpu_torch.serving.kvblocks, "
             "mxnet_tpu_torch.serving.decode, mxnet_tpu_torch.serving.pool, "
-            "mxnet_tpu_torch.serving.frontend\n"
+            "mxnet_tpu_torch.serving.frontend, mxnet_tpu_torch.faults, "
+            "mxnet_tpu_torch.serving.controller, "
+            "mxnet_tpu_torch.serving.batcher, "
+            "mxnet_tpu_torch.serving.registry\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,

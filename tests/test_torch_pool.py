@@ -315,3 +315,122 @@ def test_pool_without_a_card_raises(monkeypatch):
         lm_pool(CFG, PARAMS, n_replicas=1, devices=["cuda:0"],
                 engine_opts=OPTS)
     assert np.isfinite(PARAMS["embed"].numpy()).all()
+
+
+def test_replica_kill_fault_marks_it_dead_and_survivors_adopt():
+    """``serving.replica.kill`` hard-kills one replica mid-generation: its
+    sessions finish on the survivor with the uninterrupted streams (greedy
+    and sampled), the replica is marked dead and stays down (open circuit,
+    quarantined, never re-warmed): replacing it is the fleet controller's
+    call.  The JAX pool takes the same branch."""
+    from mxnet_tpu_torch import faults
+
+    reqs = [([1, 2, 3, i], {"max_new_tokens": 14, "seed": i,
+                            "temperature": 0.8 * (i % 2)})
+            for i in range(6)]
+    want = _twin_streams(reqs)
+    # its own model name: a recovery thread another test's pool left
+    # behind may still log events for "lm"
+    pool = lm_pool(CFG, PARAMS, n_replicas=2, devices=CPU, engine_opts=OPTS,
+                   name="killed")
+    try:
+        sess = [pool.generate(p, **kw) for p, kw in reqs]
+        # armed once every session is routed (three a replica): the fifth
+        # step from here kills one replica with its three sessions
+        faults.arm("serving.replica.kill", at=5)
+        assert [s.result(60) for s in sess] == want
+        faults.disarm()
+        moved = [s for s in sess if s.migrations]
+        assert len(moved) == 3 and all(s.migrations == 1 for s in moved)
+        deadline = time.monotonic() + 30
+        dead = []
+        while not dead:
+            assert time.monotonic() < deadline, pool.describe()
+            dead = [r for r in pool.replicas if r.dead]
+            time.sleep(0.01)
+        (r,) = dead
+        assert r.state == "quarantined" and pool._circuit[r.rid] == "open"
+        assert r.engine._live is None and r.engine.heartbeat_age() is None
+        kinds = [e["event"] for e in telemetry.events_recent(500)
+                 if e.get("replica") == str(r.rid)
+                 and e.get("model") == "killed"]
+        assert "serving.pool.replica_dead" in kinds
+        assert "serving.pool.rewarmed" not in kinds
+        card = {c["replica"]: c for c in pool.describe()["replicas"]}
+        assert card[str(r.rid)]["dead"] is True
+        # the survivor serves new work; nothing was shed
+        assert pool.generate(PROMPT, max_new_tokens=3).result(60)
+        snap = telemetry.snapshot()["counters"]
+        assert not any(v for k, v in snap["serving.shed.count"].items()
+                       if k.startswith("model=killed,"))
+        assert snap["serving.failover.count"]["model=killed"] == 3
+    finally:
+        faults.disarm()
+        pool.close()
+
+
+def test_replica_kill_matches_the_jax_pool():
+    """The same kill in both pools (the JAX pool's own fault point):
+    which sessions migrate, and the replica left dead and quarantined."""
+    from mxnet_tpu_torch import faults
+
+    reqs = [([1, 2, 3, i], {"max_new_tokens": 10, "seed": i})
+            for i in range(4)]
+    out = {}
+    for name, make, f in (
+            ("jax", lambda: jax_lm_pool(jtlm.LMConfig(*CFG),
+                                        jtlm.init_params(
+                                            jtlm.LMConfig(*CFG), seed=3),
+                                        n_replicas=2, engine_opts=OPTS),
+             jfaults),
+            ("torch", lambda: lm_pool(CFG, PARAMS, n_replicas=2,
+                                      devices=CPU, engine_opts=OPTS),
+             faults)):
+        pool = make()
+        try:
+            sess = [pool.generate(p, **kw) for p, kw in reqs]
+            # armed once all four are routed (two a replica)
+            f.arm("serving.replica.kill", at=3)
+            toks = [s.result(120) for s in sess]
+            f.disarm()
+            deadline = time.monotonic() + 60
+            while not any(r.dead for r in pool.replicas):
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+            # which replica steps third is the threads' race, in both
+            out[name] = (toks, sorted(s.migrations for s in sess),
+                         sorted((r.state, r.dead) for r in pool.replicas))
+        finally:
+            f.disarm()
+            pool.close()
+    assert out["torch"] == out["jax"]
+    assert out["torch"][1] == [0, 0, 1, 1]
+
+
+def test_shed_pressure_state_describe_and_telemetry():
+    pool = _held_pool(priority_floor=5, max_outstanding=10)
+    try:
+        assert pool.admission_state() == (0, 10, False)
+        assert pool.describe()["shed_pressure"] is False
+        pool.generate(PROMPT, max_new_tokens=2, priority=1)
+        assert pool.set_shed_pressure(True) is False
+        assert pool.set_shed_pressure(True) is True  # no second event
+        with pytest.raises(Overloaded, match="shed pressure"):
+            pool.generate(PROMPT, max_new_tokens=2, priority=4)
+        pool.generate(PROMPT, max_new_tokens=2, priority=5)
+        assert pool.admission_state() == (2, 10, True)
+        assert pool.describe()["shed_pressure"] is True
+        assert _shed("priority") == 1
+        assert telemetry.gauge_value("serving.pool.shed_pressure",
+                                     model="lm") == 1
+        pool.set_shed_pressure(False)
+        assert telemetry.gauge_value("serving.pool.shed_pressure",
+                                     model="lm") == 0
+        ev = [e["on"] for e in telemetry.events_recent(50)
+              if e["event"] == "serving.pool.shed_pressure"]
+        assert ev == [True, False]
+        pool.generate(PROMPT, max_new_tokens=2, priority=1)
+        assert "mxnet_serving_pool_shed_pressure" in \
+            telemetry.prometheus_text()
+    finally:
+        pool.close(drain=False)
