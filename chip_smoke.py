@@ -255,7 +255,33 @@
    its time, the replica count over time and, for each added replica, the
    time from the SLO breach (and from the decision) to its first token;
    and its GETs of ``/fleet`` and ``/healthz``.
-17. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
+17. The rest of the RNN toolkit, every line with the card's name and
+   power limit.  17a: ``example/rnn/lstm_bucketing.py``'s unfused stack
+   (``models.lstm_lm.build_stack``: two ``LSTMCell`` of 200, NT batches
+   unrolled NTC, phase 9's widths, corpus, SGD and initializer) through
+   ``BucketingModule.fit`` on the card for one epoch with ``score``: no
+   K4-K6 launch and no plain LSTM on the card; the ms per batch per
+   bucket beside phase 9's fused step, peak memory; one T=60 step on the
+   card against the CPU, and (in TNC, the fused model's layout) against
+   the fused model's step through K5/K6 from the same weights carried by
+   ``unpack_weights``: each update within 1e-4 of its norm (3x the CPU's
+   perturbed-embedding floor where larger).  17b,
+   ``fused_lstm_bucketing.py --test``: phase 9's fused checkpoint scored
+   through K4 and, loaded into ``cell.unfuse()`` by
+   ``load_rnn_checkpoint``, through the unfused stack on the same
+   batches: perplexities within 1e-5 (relative), each batch's outputs
+   within 1e-4 of their largest magnitude.  17c, ``--dropout 0.5``: the
+   fused fit with dropout between its layers for one epoch, 2 K5 + 2 K6
+   launches a batch, the kept share within 0.5 +- 0.01; the first
+   batch's update from one seed bit for bit twice and apart from the
+   p=0 update; one T=60 step with every K5/K6 call held against its
+   plain version on its own tensors (1e-5 forward, 1e-4 backward of each
+   output's largest magnitude).  17d: BASELINE #1's MLP feature layers
+   as a ``Module`` and a ``PythonLossModule`` softmax head in a
+   ``SequentialModule``, 8 ``MNISTIter`` batches on the card and on the
+   CPU from one seed: updates within 1e-4 of their norms (3x the CPU's
+   perturbed floor), training accuracy within 0.02.
+18. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
    name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
@@ -2714,20 +2740,23 @@ def lstm_plain_refused(rk):
             setattr(rk, k, v)
 
 
-def _lstm_module(mx, lstm_lm, ctx=None, key=max(LSTM_BUCKETS), cell=None):
+def _lstm_module(mx, lstm_lm, ctx=None, key=max(LSTM_BUCKETS), cell=None,
+                 layout="TNC"):
     sym_gen = lstm_lm.make_sym_gen(
         cell or lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS), LSTM_VOCAB,
-        LSTM_EMBED, LSTM_HIDDEN)
+        LSTM_EMBED, LSTM_HIDDEN, layout=layout)
     return mx.mod.BucketingModule(sym_gen, default_bucket_key=key) \
         if ctx is None else mx.mod.BucketingModule(
             sym_gen, default_bucket_key=key, context=ctx)
 
 
-def lstm_training_phase(mx, rk, seed):
+def lstm_training_phase(mx, rk, seed, keep=None):
     """``BucketingModule.fit`` of the fused-LSTM LM at full width on the
     card: every bucket, then one ``score`` pass on ``eval_data``; 2 K5 +
     2 K6 launches per training batch, 2 K4 per eval batch, no plain
-    version on the card."""
+    version on the card.  With a dict ``keep``, its ``"ms"`` gets the
+    median step ms per bucket and ``"prefix"`` the epoch checkpoint,
+    whose directory the caller then removes."""
     from mxnet_tpu_torch.models import lstm_lm
 
     random.seed(seed)
@@ -2800,6 +2829,8 @@ def lstm_training_phase(mx, rk, seed):
         prev = ev
     for key in LSTM_BUCKETS:
         ms = times[key]
+        if keep is not None:
+            keep.setdefault("ms", {})[key] = float(np.median(ms[1:]))
         print("lstm training bucket %d: ms per batch (CUDA events between "
               "batch ends, the first binds the bucket) %s; median after the "
               "first %.3f ms = %.0f tokens/s" % (
@@ -2816,8 +2847,11 @@ def lstm_training_phase(mx, rk, seed):
     try:
         lstm_reloaded(mx, rk, lstm_lm, prefix, mod, seed)
     finally:
-        import shutil
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if keep is None:
+            import shutil
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        else:
+            keep["prefix"] = prefix
     lstm_host_copy(mx, mod, val)
     lstm_profile(mx, mod, train)
     del mod
@@ -2961,21 +2995,30 @@ def lstm_profile(mx, mod, it):
             _dev_us(e) / 1e3, e.count, e.key[:100]), flush=True)
 
 
-def lstm_step_updates(mx, lstm_lm, ctx, params, ids):
-    """One training step of the full-width LM from ``params`` on ``ctx``:
-    {name: update} as numpy."""
+def lstm_step_updates(mx, lstm_lm, ctx, params, ids, cell=None,
+                      layout="TNC", draw_seed=None):
+    """One training step of the full-width LM (``cell``, the fused one by
+    default) from ``params`` on ``ctx``, the time-major ``ids`` fed in
+    ``layout``: {name: update} as numpy.  With ``draw_seed``, the
+    run-time generators are seeded from it before the step."""
     T = ids.shape[0]
-    mod = _lstm_module(mx, lstm_lm, ctx, key=T)
-    mod.bind([("data", ids.shape)], [("softmax_label", ids.shape)])
+    mod = _lstm_module(mx, lstm_lm, ctx, key=T, cell=cell, layout=layout)
+    label = np.concatenate([ids[1:], np.zeros_like(ids[:1])])
+    data = ids
+    if layout == "NTC":
+        data, label = np.ascontiguousarray(ids.T), \
+            np.ascontiguousarray(label.T)
+    mod.bind([("data", data.shape)], [("softmax_label", data.shape)])
     mod.init_params(mx.init.Zero())
     mx.convert.set_module_params(mod, params, {})
     mod.init_optimizer(optimizer="sgd", optimizer_params={
         "learning_rate": 0.02, "momentum": 0.0, "wd": 1e-5})
-    label = np.concatenate([ids[1:], np.zeros_like(ids[:1])])
     batch = mx.io.DataBatch(
-        [mx.nd.array(ids)], [mx.nd.array(label)], bucket_key=T,
-        provide_data=[mx.io.DataDesc("data", ids.shape)],
-        provide_label=[mx.io.DataDesc("softmax_label", ids.shape)])
+        [mx.nd.array(data)], [mx.nd.array(label)], bucket_key=T,
+        provide_data=[mx.io.DataDesc("data", data.shape)],
+        provide_label=[mx.io.DataDesc("softmax_label", data.shape)])
+    if draw_seed is not None:
+        mx.random.seed(draw_seed)
     mod.forward_backward(batch)
     mod.update()
     after = mx.convert.module_params_to_numpy(mod)[0]
@@ -4563,6 +4606,501 @@ def fleet_phase(mx, seed, reuse):
     return out
 
 
+# -- the rest of the RNN toolkit (phase 17) -----------------------------------
+def _lstm_corpus_iters(mx, lstm_lm, seed, layout):
+    """Phase 9's training and validation iterators, seeded as phase 9
+    seeds them, in ``layout`` ("TN" for the fused model, "NT" for
+    ``lstm_bucketing.py``'s)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    return [mx.rnn.BucketSentenceIter(
+        lstm_lm.synth_corpus(count, LSTM_VOCAB, seed=seed + s,
+                             buckets=LSTM_BUCKETS), LSTM_BATCH,
+        buckets=list(LSTM_BUCKETS), invalid_label=0, layout=layout)
+        for count, s in ((LSTM_TRAIN_SENTENCES, 3), (LSTM_VAL_SENTENCES, 17))]
+
+
+def _lstm_counts(rk, reset=False):
+    kernels = (rk.lstm_infer_cuda, rk.lstm_fwd_cuda, rk.lstm_bwd_cuda)
+    if reset:
+        for k in kernels:
+            k.launches = 0
+    return tuple(k.launches for k in kernels)
+
+
+def _update_distances(label, smi, got, want, floor_of, what):
+    """Each update of ``got`` against ``want`` within 1e-4 of its norm, or
+    3x the distance ``floor_of`` (the CPU's own update on a perturbed
+    embedding) where that is larger; returns the worst distance over its
+    bound."""
+    worst = 0.0
+    for k in sorted(want):
+        norm = max(float(np.linalg.norm(want[k])), 1e-30)
+        dist = float(np.linalg.norm(got[k] - want[k])) / norm
+        floor = float(np.linalg.norm(floor_of[k] - want[k])) / norm \
+            if floor_of is not None else 0.0
+        bound = 3 * floor if floor > 1e-4 else 1e-4
+        worst = max(worst, dist / bound)
+        print("%s [%s] %s: %s %.3g of its norm, floor %.3g, bound %.3g"
+              % (label, smi, k, what, dist, floor, bound), flush=True)
+        if not dist <= bound:
+            raise RuntimeError("%s: %s of %s is %.3g of the norm (bound "
+                               "%.3g)" % (label, what, k, dist, bound))
+    return worst
+
+
+def lstm_unfused_phase(mx, rk, seed, smi, fused_ms):
+    """Phase 17a: ``lstm_bucketing.py``'s unfused stack (``LSTMCell`` x 2,
+    NT batches unrolled NTC) at phase 9's widths through
+    ``BucketingModule.fit`` on the card for one epoch of phase 9's corpus
+    with ``score`` on its eval data: no K4-K6 launch and no plain LSTM on
+    the card; step ms per bucket beside phase 9's fused step, peak
+    memory; then one T=60 step on the card against the CPU (NTC), and the
+    stack's step in TNC against the fused model's step through K5/K6 from
+    the same weights (carried with ``unpack_weights``; one layout for
+    both, as ``Module`` takes the batch size from the data's first axis),
+    each update within 1e-4 of its norm (3x the CPU's perturbed-embedding
+    floor where that is larger)."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    train, val = _lstm_corpus_iters(mx, lstm_lm, seed, "NT")
+    stack = lstm_lm.build_stack(LSTM_HIDDEN, LSTM_LAYERS)
+    mod = _lstm_module(mx, lstm_lm, cell=stack, layout="NTC")
+    marks, evals = [], []
+
+    def mark(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((param.locals["data_batch"].bucket_key, ev))
+
+    val_metric = mx.metric.Perplexity(0)
+    mx.init.seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    with lstm_plain_refused(rk):
+        # -- the main path: counts from 0, one epoch with eval --
+        _lstm_counts(rk, reset=True)
+        start.record()
+        t0 = time.perf_counter()
+        mod.fit(train, eval_data=val, eval_metric=mx.metric.Perplexity(0),
+                validation_metric=val_metric, num_epoch=1,
+                batch_end_callback=mark,
+                eval_batch_end_callback=lambda p: evals.append(p.nbatch),
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": 0.02, "momentum": 0.0, "wd": 1e-5},
+                initializer=mx.init.Xavier(factor_type="in", magnitude=2.34))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _lstm_counts(rk)
+        # -- end of the main path --
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (_, ppl), = val_metric.get_name_value()
+    arg, _ = mod.get_params()
+    nodes = len(mod._buckets[max(LSTM_BUCKETS)]._exec._nodes)
+    print("lstm unfused [%s] BucketingModule.fit of lstm_bucketing.py's "
+          "stack (%d LSTMCell of %d, vocab %d, embed %d, b%d, NTC): %d "
+          "training batches, %d eval batches, fit %.2f s (binds included), "
+          "%d graph nodes at T=%d; K4/K5/K6 launches %s (expected none); "
+          "peak memory allocated %.3f GB; validation perplexity %.4f"
+          % (smi, LSTM_LAYERS, LSTM_HIDDEN, LSTM_VOCAB, LSTM_EMBED,
+             LSTM_BATCH, len(marks), len(evals), fit_s, nodes,
+             max(LSTM_BUCKETS), launches, peak_gb, ppl), flush=True)
+    if launches != (0, 0, 0) or not evals:
+        raise RuntimeError("the unfused LM launched K4/K5/K6 %s times"
+                           % (launches,))
+    bad = [k for k, v in arg.items() if not torch.isfinite(v._t).all()]
+    if bad or not np.isfinite(ppl):
+        raise RuntimeError("the unfused LM gave non-finite params %s or "
+                           "perplexity %s" % (bad, ppl))
+    times, prev = {}, start
+    for key, ev in marks:
+        times.setdefault(key, []).append(prev.elapsed_time(ev))
+        prev = ev
+    steps = {}
+    for key in LSTM_BUCKETS:
+        ms = times[key]
+        steps[key] = float(np.median(ms[1:]))
+        print("lstm unfused [%s] bucket %d: ms per batch (CUDA events "
+              "between batch ends, the first binds the bucket) %s; median "
+              "after the first %.3f ms (%.0f tokens/s), phase 9's fused "
+              "step %.3f ms (%.2fx)" % (
+                  smi, key, ["%.2f" % t for t in ms], steps[key],
+                  key * LSTM_BATCH / steps[key] * 1e3, fused_ms[key],
+                  steps[key] / fused_ms[key]), flush=True)
+    del mod
+    torch.cuda.empty_cache()
+
+    T = max(LSTM_BUCKETS)
+    rs = np.random.RandomState(seed + 5)
+    ids = rs.randint(1, LSTM_VOCAB, (T, LSTM_BATCH)).astype(np.float32)
+    init = _lstm_module(mx, lstm_lm, mx.cpu(), key=T)
+    init.bind([("data", ids.shape)], [("softmax_label", ids.shape)])
+    mx.init.seed(seed)
+    init.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    fused = mx.convert.module_params_to_numpy(init)[0]
+    del init
+    cell = lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS)
+
+    def unpacked(params):
+        return {k: v.asnumpy() if hasattr(v, "asnumpy") else v
+                for k, v in cell.unpack_weights(params).items()}
+
+    unfused = unpacked(fused)
+    with lstm_plain_refused(rk):
+        _lstm_counts(rk, reset=True)
+        t = time.perf_counter()
+        gu = lstm_step_updates(mx, lstm_lm, mx.gpu(0), unfused, ids,
+                               cell=stack, layout="NTC")
+        gs = time.perf_counter() - t
+        # the fused model's layout: Module takes the batch size (and so
+        # rescale_grad) from the data's first axis, T in TNC
+        gt = lstm_step_updates(mx, lstm_lm, mx.gpu(0), unfused, ids,
+                               cell=stack)
+        step_launches = _lstm_counts(rk)
+        fu = unpacked(lstm_step_updates(mx, lstm_lm, mx.gpu(0), fused, ids))
+        fused_launches = _lstm_counts(rk)
+    if step_launches != (0, 0, 0) or fused_launches != (0, 2, 2):
+        raise RuntimeError("unfused steps launched %s, fused step %s"
+                           % (step_launches, fused_launches))
+    t = time.perf_counter()
+    cu = lstm_step_updates(mx, lstm_lm, mx.cpu(), unfused, ids, cell=stack,
+                           layout="NTC")
+    cs = time.perf_counter() - t
+    perturbed = dict(unfused)
+    perturbed["embed_weight"] = (unfused["embed_weight"] * (
+        1 + 1e-7 * rs.standard_normal(unfused["embed_weight"].shape))) \
+        .astype(np.float32)
+    pu = lstm_step_updates(mx, lstm_lm, mx.cpu(), perturbed, ids,
+                           cell=stack, layout="NTC")
+    w_cpu = _update_distances("lstm unfused parity T=%d" % T, smi, gu, cu,
+                              pu, "card vs CPU update")
+    w_fused = _update_distances("lstm unfused vs fused T=%d" % T, smi, gt,
+                                fu, None, "unfused vs fused (K5/K6) update")
+    print("lstm unfused [%s] one step b%d T=%d: card %.2f s, CPU %.2f s; "
+          "worst distance over its bound: card vs CPU %.3g, unfused vs "
+          "fused %.3g" % (smi, LSTM_BATCH, T, gs, cs, w_cpu, w_fused),
+          flush=True)
+    return steps
+
+
+def lstm_unfused_score(mx, rk, seed, smi, prefix):
+    """Phase 17b, ``fused_lstm_bucketing.py --test``: phase 9's fused epoch
+    checkpoint scored by the fused model through K4 (TN batches), then
+    loaded into ``cell.unfuse()`` through ``load_rnn_checkpoint`` and
+    scored on the card on the same batches in NT (no K4-K6 launch): the
+    perplexities within 1e-5 (relative), each batch's outputs within
+    1e-4 of their largest magnitude.  Returns the K4 launches."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    def scored(cell, layout):
+        _train, val = _lstm_corpus_iters(mx, lstm_lm, seed, layout[:2])
+        mod = _lstm_module(mx, lstm_lm, cell=cell, layout=layout)
+        mod.bind(val.provide_data, val.provide_label, for_training=False)
+        _sym, arg, aux = mx.rnn.load_rnn_checkpoint(cell, prefix, 1)
+        mod.set_params(arg, aux)
+        outs = []
+        # the val iterator is the second one built after the seeds, as in
+        # phase 9; score's reset reshuffles it alike for both layouts
+        with lstm_plain_refused(rk):
+            _lstm_counts(rk, reset=True)
+            (_, ppl), = mod.score(val, mx.metric.Perplexity(0),
+                                  batch_end_callback=lambda p: outs.append(
+                                      (p.locals["eval_batch"].bucket_key,
+                                       mod.get_outputs()[0]._t.clone())))
+            torch.cuda.synchronize()
+            launches = _lstm_counts(rk)
+        return ppl, outs, launches, sorted(arg)
+
+    fused_ppl, fused_outs, f_launches, _ = scored(
+        lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS), "TNC")
+    stack = lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS).unfuse()
+    ppl, outs, u_launches, names = scored(stack, "NTC")
+    worst = 0.0
+    for (fk, fo), (uk, uo) in zip(fused_outs, outs):
+        if fk != uk:
+            raise RuntimeError("bucket %s against %s" % (fk, uk))
+        # the fused rows are (t, n), the unfused (n, t)
+        fo = fo.reshape(fk, LSTM_BATCH, -1).transpose(0, 1).reshape(
+            uo.shape)
+        worst = max(worst, float((uo - fo).abs().max() / fo.abs().max()))
+    rel = abs(ppl - fused_ppl) / fused_ppl
+    print("lstm unfused score [%s] of phase 9's fused checkpoint through "
+          "unfuse() + load_rnn_checkpoint (%d arrays: %s...): perplexity "
+          "%.6f against the fused K4 score's %.6f (relative %.3g, limit "
+          "1e-5); %d batches, worst output difference %.3g of the batch's "
+          "largest (limit 1e-4); launches K4/K5/K6 fused %s, unfused %s"
+          % (smi, len(names), names[:3], ppl, fused_ppl, rel,
+             len(outs), worst, f_launches, u_launches), flush=True)
+    if len(outs) != len(fused_outs) or not outs:
+        raise RuntimeError("scored %d and %d batches"
+                           % (len(outs), len(fused_outs)))
+    if not rel <= 1e-5 or not worst <= 1e-4:
+        raise RuntimeError("unfused score %r against fused %r, outputs %.3g"
+                           % (ppl, fused_ppl, worst))
+    if u_launches != (0, 0, 0) or f_launches != (
+            LSTM_LAYERS * len(outs), 0, 0):
+        raise RuntimeError("launches: fused %s, unfused %s"
+                           % (f_launches, u_launches))
+    return f_launches[0]
+
+
+@contextlib.contextmanager
+def dropout_counted(nn_rnn, kept):
+    """Within the block the ``RNN`` op's dropout adds its kept and total
+    elements (device tensors, read once after) to ``kept``."""
+    drop = nn_rnn.dropout
+
+    def counted(x, p):
+        out = drop(x, p)
+        kept.append(((out != 0).sum(), out.numel()))
+        return out
+
+    nn_rnn.dropout = counted
+    try:
+        yield
+    finally:
+        nn_rnn.dropout = drop
+
+
+@contextlib.contextmanager
+def lstm_checking(rk, errs):
+    """Within the block each K5 and K6 call is held against its plain
+    version on the call's own tensors: ``errs[name]`` collects each
+    output's largest difference over that output's largest magnitude."""
+    route = rk._route
+
+    def rerouted(x, cuda_fn, plain_fn):
+        fn = route(x, cuda_fn, plain_fn)
+        if fn is not cuda_fn:
+            return fn
+
+        def checked(*args):
+            out = fn(*args)
+            with torch.no_grad():
+                ref = plain_fn(*args)
+            errs.setdefault(cuda_fn.__name__, []).append([
+                float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(out, ref)])
+            return out
+        return checked
+
+    rk._route = rerouted
+    try:
+        yield
+    finally:
+        rk._route = route
+
+
+def lstm_dropout_phase(mx, rk, seed, smi):
+    """Phase 17c, ``fused_lstm_bucketing.py --dropout 0.5``: the fused fit
+    with dropout between its two layers for one epoch of phase 9's corpus
+    on the card, 2 K5 + 2 K6 launches a batch, the kept share within 0.5
+    +- 0.01; the first batch's update from the same seed bit for bit
+    twice, and different at p=0; then one T=60 step with each K5/K6 call
+    held against its plain version on its own tensors (forward 1e-5,
+    backward 1e-4 of each output's largest magnitude).  Returns the K5
+    and K6 launches."""
+    from mxnet_tpu_torch.models import lstm_lm
+    from mxnet_tpu_torch.ops import rnn as nn_rnn
+
+    train, _val = _lstm_corpus_iters(mx, lstm_lm, seed, "TN")
+    cell = lstm_lm.build_cell(LSTM_HIDDEN, LSTM_LAYERS, dropout=0.5)
+    mod = _lstm_module(mx, lstm_lm, cell=cell)
+    kept, seen = [], []
+    mx.init.seed(seed)
+    mx.random.seed(seed)
+    with lstm_plain_refused(rk), dropout_counted(nn_rnn, kept):
+        # -- the main path: counts from 0, one epoch --
+        _lstm_counts(rk, reset=True)
+        t0 = time.perf_counter()
+        mod.fit(train, eval_metric=mx.metric.Perplexity(0), num_epoch=1,
+                batch_end_callback=lambda p: seen.append(1),
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": 0.02, "momentum": 0.0, "wd": 1e-5},
+                initializer=mx.init.Xavier(factor_type="in", magnitude=2.34))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = _lstm_counts(rk)
+        # -- end of the main path --
+    n = len(seen)
+    share = float(sum(k for k, _ in kept)) / sum(t for _, t in kept)
+    arg, _ = mod.get_params()
+    finite = all(torch.isfinite(v._t).all() for v in arg.values())
+    print("lstm dropout [%s] fused fit, dropout 0.5 between 2 layers: %d "
+          "batches in %.2f s, K4/K5/K6 launches %s (expected (0, %d, %d)); "
+          "%d masks, kept share %.5f over %d elements (limit 0.5 +- 0.01); "
+          "parameters finite %s" % (
+              smi, n, fit_s, launches, 2 * n, 2 * n, len(kept), share,
+              sum(t for _, t in kept), finite), flush=True)
+    if launches != (0, LSTM_LAYERS * n, LSTM_LAYERS * n) or not finite:
+        raise RuntimeError("dropout fit launched %s over %d batches"
+                           % (launches, n))
+    if not abs(share - 0.5) <= 0.01 or len(kept) != (LSTM_LAYERS - 1) * n:
+        raise RuntimeError("dropout kept %.5f in %d masks" % (share,
+                                                              len(kept)))
+    batch = next(iter(train))
+    ids = batch.data[0].asnumpy()
+    params = mx.convert.module_params_to_numpy(mod)[0]
+    del mod
+    torch.cuda.empty_cache()
+    a, b = (lstm_step_updates(mx, lstm_lm, mx.gpu(0), params, ids, cell=cell,
+                              draw_seed=seed) for _ in range(2))
+    plain = lstm_step_updates(mx, lstm_lm, mx.gpu(0), params, ids,
+                              cell=lstm_lm.build_cell(LSTM_HIDDEN,
+                                                      LSTM_LAYERS))
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+    other = max(float(np.abs(a[k] - plain[k]).max()) for k in a)
+    print("lstm dropout [%s] first batch (T=%d) from seed %d twice: updates "
+          "equal bit for bit %s; the p=0 step's largest difference %.3g"
+          % (smi, ids.shape[0], seed, same, other), flush=True)
+    if not same or not other > 0:
+        raise RuntimeError("dropout step: rerun equal %s, p=0 difference %s"
+                           % (same, other))
+    T = max(LSTM_BUCKETS)
+    rs = np.random.RandomState(seed + 7)
+    ids = rs.randint(1, LSTM_VOCAB, (T, LSTM_BATCH)).astype(np.float32)
+    errs = {}
+    with lstm_checking(rk, errs):
+        lstm_step_updates(mx, lstm_lm, mx.gpu(0), params, ids, cell=cell,
+                          draw_seed=seed)
+        torch.cuda.synchronize()
+    for name, limit in (("lstm_fwd_cuda", 1e-5), ("lstm_bwd_cuda", 1e-4)):
+        calls = errs.get(name, [])
+        worst = [max(e[i] for e in calls) for i in range(len(calls[0]))] \
+            if calls else []
+        print("lstm dropout [%s] checked T=%d step: %d %s calls on their "
+              "own tensors, worst error by output %s (limit %g)" % (
+                  smi, T, len(calls), name, ["%.3g" % w for w in worst],
+                  limit), flush=True)
+        if len(calls) != LSTM_LAYERS or not max(worst) <= limit:
+            raise RuntimeError("%s: %d calls, errors %s" % (name, len(calls),
+                                                             worst))
+    return launches[1], launches[2]
+
+
+class _FirstBatches:
+    """The first ``n`` batches of ``inner`` as an epoch."""
+
+    def __init__(self, inner, n):
+        self.inner, self.n, self.seen = inner, n, 0
+        self.provide_data = inner.provide_data
+        self.provide_label = inner.provide_label
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self.inner.reset()
+        self.seen = 0
+
+    def __next__(self):
+        if self.seen == self.n:
+            raise StopIteration
+        self.seen += 1
+        return next(self.inner)
+
+
+def _ce_grad(scores, labels):
+    """The softmax cross-entropy gradient of a ``PythonLossModule`` head,
+    in numpy, averaged over the batch."""
+    s = scores.asnumpy()
+    lab = labels.asnumpy().astype(int)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    p[np.arange(len(lab)), lab] -= 1.0
+    return p / len(lab)
+
+
+SEQ_BATCHES = 8
+
+
+def sequential_fit(mx, paths, ctx, seed, perturb=None):
+    """BASELINE #1's MLP feature layers (``fc1``-``fc3``) as a ``Module``
+    and a ``PythonLossModule`` softmax head in a ``SequentialModule``,
+    fit over the first ``SEQ_BATCHES`` flat ``MNISTIter`` batches on
+    ``ctx`` (SGD lr 0.05 momentum 0.9, Xavier gaussian in 2 from
+    ``seed``): (initial params, final params, accuracy)."""
+    it = mx.io.MNISTIter(image=paths["train_img"], label=paths["train_lab"],
+                         batch_size=MNIST_BATCH, shuffle=False, flat=True)
+    if perturb is not None:
+        rng = np.random.default_rng(perturb[1])
+        inner = it._inner
+        inner.data = [(k, (v * (1 + perturb[0] * rng.standard_normal(
+            v.shape))).astype(np.float32)) for k, v in inner.data]
+    with mx.name.NameManager():
+        feat = mx.models.get_symbol("mlp", num_classes=10).get_internals()[
+            "fc3_output"]
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(feat, label_names=(), context=ctx))
+    seq.add(mx.mod.PythonLossModule(grad_func=_ce_grad), take_labels=True,
+            auto_wiring=True)
+    it = _FirstBatches(it, SEQ_BATCHES)
+    seq.bind(it.provide_data, it.provide_label)
+    mx.init.seed(seed)
+    seq.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    before = {k: v.asnumpy() for k, v in seq.get_params()[0].items()}
+    metric = mx.metric.Accuracy()
+    seq.fit(it, eval_metric=metric, num_epoch=1, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9})
+    after = {k: v.asnumpy() for k, v in seq.get_params()[0].items()}
+    return before, after, metric.get()[1]
+
+
+def sequential_phase(mx, seed, smi):
+    """Phase 17d: ``sequential_fit`` on the card and on the CPU from the
+    same seeded weights and batches: each parameter's update within 1e-4
+    of its norm (3x the CPU's own spread on perturbed images where that
+    is larger), the training accuracy within 0.02 (phase 14's limit)."""
+    with tempfile.TemporaryDirectory() as d:
+        paths = mx.models.lenet.synth_mnist(d)
+        t = time.perf_counter()
+        g0, g1, gacc = sequential_fit(mx, paths, mx.gpu(0), seed)
+        torch.cuda.synchronize()
+        gs = time.perf_counter() - t
+        c0, c1, cacc = sequential_fit(mx, paths, mx.cpu(), seed)
+        p0, p1, _ = sequential_fit(mx, paths, mx.cpu(), seed,
+                                   perturb=(1e-7, seed))
+    for k in c0:
+        if not np.array_equal(g0[k], c0[k]):
+            raise RuntimeError("sequential: %s initialized apart" % k)
+    upd = {k: g1[k] - g0[k] for k in g1}
+    worst = _update_distances(
+        "sequential %d batches b%d" % (SEQ_BATCHES, MNIST_BATCH), smi, upd,
+        {k: c1[k] - c0[k] for k in c1}, {k: p1[k] - p0[k] for k in p1},
+        "card vs CPU update")
+    print("sequential [%s] SequentialModule(Module(mlp fc1-fc3), "
+          "PythonLossModule) over %d MNISTIter batches: card %.2f s, "
+          "training accuracy card %.4f, CPU %.4f (limit 0.02); worst update "
+          "distance over its bound %.3g" % (smi, SEQ_BATCHES, gs, gacc, cacc,
+                                            worst), flush=True)
+    if not abs(gacc - cacc) <= 0.02:
+        raise RuntimeError("sequential accuracy card %r, CPU %r"
+                           % (gacc, cacc))
+
+
+def rnn_toolkit_phase(mx, rk, seed, smi, fused):
+    """Phase 17 (a-d); ``fused`` holds phase 9's step ms per bucket and
+    checkpoint.  Returns the K4, K5 and K6 launches of its main paths."""
+    import shutil
+
+    try:
+        t = time.perf_counter()
+        lstm_unfused_phase(mx, rk, seed, smi, fused["ms"])
+        ta = time.perf_counter() - t
+        k4 = lstm_unfused_score(mx, rk, seed, smi, fused["prefix"])
+    finally:
+        shutil.rmtree(os.path.dirname(fused["prefix"]), ignore_errors=True)
+    tb = time.perf_counter() - t - ta
+    k5, k6 = lstm_dropout_phase(mx, rk, seed, smi)
+    tc = time.perf_counter() - t - ta - tb
+    sequential_phase(mx, seed, smi)
+    td = time.perf_counter() - t - ta - tb - tc
+    print("rnn toolkit phase [%s]: 17a %.1f s, 17b %.1f s, 17c %.1f s, 17d "
+          "%.1f s" % (smi, ta, tb, tc, td), flush=True)
+    return k4, k5, k6
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4631,11 +5169,13 @@ def main():
     inception = inception_phase(mx, bnk, args.seed, TRAIN_STEPS)
     parity_phase(mx, bnk, args.seed, _inception_module, "Inception-v3",
                  INCEPTION_IMAGE, (-1, 1))
-    lstm_launches = lstm_training_phase(mx, rk, args.seed)
+    lstm_fused = {}
+    lstm_launches = lstm_training_phase(mx, rk, args.seed, keep=lstm_fused)
     lstm_parity_phase(mx, args.seed)
     mnist_phase(mx, args.seed)
     decode = decode_phase(mx, args.seed)
     fleet_phase(mx, args.seed, decode.pop("reuse"))
+    toolkit = rnn_toolkit_phase(mx, rk, args.seed, smi, lstm_fused)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"
@@ -4670,11 +5210,13 @@ def main():
                     inception_v3=dict(inc_totals["bwd"],
                                       launches=inc_launches[1]))]
     # the LSTM rows: times at T=60, N=32, H=200 (the default bucket);
-    # launches over the whole fit (K4 in its score pass)
+    # launches over phase 9's fit (K4 in its score pass), phase 17b's
+    # fused score (K4) and phase 17c's dropout fit (K5, K6)
     t_max = max(LSTM_BUCKETS)
     for (kid, kname, line), n in zip(
             (("K4", "lstm_infer", 126), ("K5", "lstm_fwd", 56),
-             ("K6", "lstm_bwd", 82)), lstm_launches):
+             ("K6", "lstm_bwd", 82)),
+            [a + b for a, b in zip(lstm_launches, toolkit)]):
         kernels.append(dict(
             name=kname, route="cuda", source="mxnet_tpu_torch/csrc/lstm.cu",
             replaces="mxnet_tpu/ops/rnn_pallas.py:%d" % line, launches=n,

@@ -27,7 +27,13 @@ and returns an :class:`Executor`.
   tensors it was captured on, or with another key, captures anew and
   frees the old graph (its memory pool is held while it lives).  A
   capture or replay that fails raises.  On the CPU the same step runs
-  eagerly.
+  eagerly.  A graph holding an op that draws (``Dropout``, the ``RNN``
+  op) registers ``mx.random``'s generator of the device with the
+  capture: each replay advances its offset, so no replay repeats a
+  captured mask, and ``mx.random.get_state`` after it is that of as many
+  eager steps.
+* An op with no inputs (``_zeros``) makes its output on the bound device
+  (``registry.device_scope``).
 """
 
 from __future__ import annotations
@@ -36,10 +42,12 @@ import time
 
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .context import as_context, gpu
 from .ndarray import NDArray, zeros
 from .ops import launches
+from .ops.registry import device_scope
 from .ops.nn import _batch_norm
 from .optimizer import hyper_tensor, lr_wd_groups, sgd_step_math
 
@@ -112,6 +120,10 @@ class Executor:
         self._ctx = ctx
         self._nodes = symbol._nodes()
         self._peephole = _bn_relu_peephole(symbol, self._nodes)
+        self._device = ctx.torch_device()
+        #: the graph holds an op that draws from ``mx.random.generator``
+        self._draws = any(not n.is_variable and n.op.draws
+                          for n in self._nodes)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -244,6 +256,9 @@ class Executor:
         for o in outs:
             o.record_stream(stream)
         graph = torch.cuda.CUDAGraph()
+        if self._draws:
+            # a fresh offset each replay: never the captured mask again
+            graph.register_generator_state(_random.generator(dev))
         t = time.perf_counter()
         # thread_local: a DevicePrefetchIter's producer thread may pin and
         # copy the next batch on its own stream meanwhile, which a
@@ -306,6 +321,10 @@ class Executor:
     def _walk(self, is_train, leaves):
         """Apply every op in topological order; returns (outputs, {aux
         name: new value})."""
+        with device_scope(self._device):
+            return self._walk_ops(is_train, leaves)
+
+    def _walk_ops(self, is_train, leaves):
         vals, new_aux, bn_stash = {}, {}, {}
         bn_defer, act_fuse = self._peephole if is_train else (set(), {})
         for node in self._nodes:

@@ -1,15 +1,18 @@
-"""The PTB-style fused-LSTM language model (BASELINE config #3), the
-port's copy of ``example/rnn/fused_lstm_bucketing.py`` (``build_cell``,
-``make_sym_gen``) and of the Markov-chain corpus of
-``example/rnn/lstm_bucketing.py`` (``synth_corpus``), built through this
-package's ``mx.sym`` and ``mx.rnn`` with the same argument names, so the
+"""The PTB-style LSTM language model (BASELINE config #3): the port's copy
+of ``example/rnn/fused_lstm_bucketing.py`` (``build_cell``,
+``make_sym_gen``), of ``example/rnn/lstm_bucketing.py``'s unfused stack
+(``build_stack``: ``LSTMCell``s, no kernel of the port) and of its
+Markov-chain corpus (``synth_corpus``), built through this package's
+``mx.sym`` and ``mx.rnn`` with the same argument and node names, so the
 graphs and their parameters match the JAX package's.
 
-The example's arguments become keywords with its defaults (2 layers, 200
-hidden, 200 embedding, dropout 0), unidirectional and in the TNC layout,
-the only forms this slice runs; ``vocab_size``
-defaults to 10,000, the size of the PTB word vocabulary (the example's
-``--vocab-size 100`` only sizes its synthetic stand-in corpus).
+The examples' arguments become keywords with their defaults (2 layers,
+200 hidden, 200 embedding, dropout 0), unidirectional; the fused model
+unrolls in the TNC layout (its iterator's ``layout="TN"``), the unfused
+one in ``lstm_bucketing.py``'s NTC (the iterator's default ``"NT"``).
+``vocab_size`` defaults to 10,000, the size of the PTB word vocabulary
+(the examples' ``--vocab-size 100`` only sizes their synthetic stand-in
+corpus).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from .. import rnn
 from .. import symbol as sym
 
 __all__ = ["BUCKETS", "START_TOKEN", "PTB_VOCAB", "synth_corpus",
-           "build_cell", "make_sym_gen"]
+           "build_cell", "build_stack", "make_sym_gen"]
 
 BUCKETS = (10, 20, 30, 40, 50, 60)
 START_TOKEN = 2  # 0 = pad/invalid, 1 = unk
@@ -64,18 +67,32 @@ def build_cell(num_hidden=200, num_layers=2, stack_rnn=False, dropout=0.0):
                             dropout=dropout)
 
 
-def make_sym_gen(cell, vocab_size=PTB_VOCAB, num_embed=200, num_hidden=200):
+def build_stack(num_hidden=200, num_layers=2):
+    """``lstm_bucketing.py``'s stack: a ``SequentialRNNCell`` of
+    ``LSTMCell(prefix="lstm_l%d_")``, whose weights are the names
+    ``build_cell(...).unpack_weights`` gives."""
+    stack = rnn.SequentialRNNCell()
+    for i in range(num_layers):
+        stack.add(rnn.LSTMCell(num_hidden=num_hidden,
+                               prefix="lstm_l%d_" % i))
+    return stack
+
+
+def make_sym_gen(cell, vocab_size=PTB_VOCAB, num_embed=200, num_hidden=200,
+                 layout="TNC"):
     """``sym_gen(seq_len) -> (symbol, ("data",), ("softmax_label",))``:
-    Embedding, the cell unrolled over ``seq_len`` steps in the TNC
-    layout, FullyConnected to
-    the vocabulary and SoftmaxOutput, as ``BucketingModule`` takes it."""
+    Embedding, the cell unrolled over ``seq_len`` steps in ``layout``
+    (``"TNC"`` for a ``layout="TN"`` iterator, ``"NTC"`` for ``"NT"``),
+    FullyConnected to the vocabulary and SoftmaxOutput, as
+    ``BucketingModule`` takes it."""
     def sym_gen(seq_len):
         data = sym.Variable("data")
         label = sym.Variable("softmax_label")
         embed = sym.Embedding(data=data, input_dim=vocab_size,
                               output_dim=num_embed, name="embed")
+        cell.reset()
         outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True,
-                                 layout="TNC")
+                                 layout=layout)
         pred = sym.Reshape(outputs, shape=(-1, num_hidden))
         pred = sym.FullyConnected(data=pred, num_hidden=vocab_size,
                                   name="pred")

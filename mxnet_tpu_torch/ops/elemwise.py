@@ -1,6 +1,8 @@
-"""Elementwise ops on the served path (counterpart of
-``mxnet_tpu/ops/elemwise.py``): ``elemwise_add``, which ``Symbol.__add__``
-emits, and ``_plus_scalar``."""
+"""Elementwise ops (counterpart of ``mxnet_tpu/ops/elemwise.py``): the
+binary ``elemwise_add/sub/mul/div`` that ``Symbol``'s arithmetic emits,
+and the scalar forms ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``.
+Each is one torch op (cuBLAS-free elementwise kernels on the card), as
+XLA lowers them in the JAX package."""
 
 from __future__ import annotations
 
@@ -10,6 +12,21 @@ from .registry import REQUIRED, pfloat, simple
 
 simple("elemwise_add", torch.add, arguments=("lhs", "rhs"),
        aliases=("_plus", "_add"))
+simple("elemwise_sub", torch.sub, arguments=("lhs", "rhs"),
+       aliases=("_minus", "_sub"))
+simple("elemwise_mul", torch.mul, arguments=("lhs", "rhs"),
+       aliases=("_mul",))
+simple("elemwise_div", torch.div, arguments=("lhs", "rhs"),
+       aliases=("_div",))
 
-simple("_plus_scalar", lambda data, scalar: data + scalar,
-       params={"scalar": (pfloat, REQUIRED)})
+
+def _scalar_op(name, fn):
+    simple(name, fn, params={"scalar": (pfloat, REQUIRED)})
+
+
+_scalar_op("_plus_scalar", lambda data, scalar: data + scalar)
+_scalar_op("_minus_scalar", lambda data, scalar: data - scalar)
+_scalar_op("_rminus_scalar", lambda data, scalar: scalar - data)
+_scalar_op("_mul_scalar", lambda data, scalar: data * scalar)
+_scalar_op("_div_scalar", lambda data, scalar: data / scalar)
+_scalar_op("_rdiv_scalar", lambda data, scalar: scalar / data)

@@ -2,7 +2,9 @@
 ``mxnet_tpu/ops/infer.py`` the served and training paths need:
 ``simple_bind`` sizes weights, BatchNorm's gamma/beta/moving stats, the
 RNN op's parameter blob and states, and ``softmax_label`` from the data
-shape alone through them.  Pooling has no
+shape alone through them; the elementwise ops give a missing operand the
+other's shape, and the unary ones (scalar arithmetic, ``*_like``,
+``expand_dims``) their input the shape a consumer fixed for their output.  Pooling has no
 parameters, so its output shape comes from the ``meta`` run alone.
 
 Each rule: ``(attrs, in_shapes, in_dtypes, aux_shapes) -> (in_shapes,
@@ -161,9 +163,34 @@ def _concat_from_output(attrs, out_shape, in_shapes):
 get("Concat").infer_from_output = _concat_from_output
 
 
-@rule("elemwise_add")
 def _same_shape(attrs, ins, dts, auxs):
     known = next((s for s in ins if s is not None), None)
     if known is not None:
         ins = [known if s is None else s for s in ins]
     return ins, auxs
+
+
+for _name in ("elemwise_add", "elemwise_sub", "elemwise_mul",
+              "elemwise_div"):
+    get(_name).infer_inputs = _same_shape
+
+
+def _like_output(attrs, out_shape, in_shapes):
+    """An elementwise unary op's input has its output's shape."""
+    return [tuple(out_shape)]
+
+
+for _name in ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
+              "_mul_scalar", "_div_scalar", "_rdiv_scalar", "ones_like",
+              "zeros_like"):
+    get(_name).infer_from_output = _like_output
+
+
+def _expand_dims_from_output(attrs, out_shape, in_shapes):
+    axis = attrs["axis"] % len(out_shape)
+    return [tuple(out_shape[:axis]) + tuple(out_shape[axis + 1:])]
+
+
+get("expand_dims").infer_from_output = _expand_dims_from_output
+# ``_zeros`` takes no input: its (meta) output comes from its ``shape``
+# attr under shape inference's ``device_scope("meta")``

@@ -1,10 +1,14 @@
 """Shape ops (counterpart of ``mxnet_tpu/ops/matrix.py``): ``Reshape``
-with MXNet's special codes, ``Flatten`` and ``SwapAxis``."""
+with MXNet's special codes, ``Flatten``, ``SwapAxis`` and
+``expand_dims``."""
 
 from __future__ import annotations
 
 from ..base import MXNetError
-from .registry import pbool, pint, ptuple, simple
+from .registry import REQUIRED, pbool, pint, ptuple, simple
+
+simple("expand_dims", lambda data, axis: data.unsqueeze(axis),
+       params={"axis": (pint, REQUIRED)})
 
 simple("Flatten", lambda data: data.reshape(data.shape[0], -1),
        aliases=("flatten",))

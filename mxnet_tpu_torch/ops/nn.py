@@ -209,17 +209,33 @@ register("BatchNorm", _batch_norm,
          aliases=("CuDNNBatchNorm",), hint="batchnorm", updates_aux=True)
 
 
+def dropout(x, p):
+    """Inverted dropout of ``x``: each element kept with probability
+    ``1 - p`` as ``x / keep``, else 0 (the JAX package's ``where(mask, x /
+    keep, 0)``; the divisor is a tensor, so the card divides as the CPU
+    does rather than multiplying by a reciprocal).  The mask is drawn
+    from ``mx.random.generator(x.device)``; it never matches the JAX
+    package's threefry mask."""
+    from .. import random as _random
+
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=_random.generator(x.device),
+                      device=x.device) < keep
+    return torch.where(mask, x / torch.full((), keep, dtype=x.dtype,
+                                            device=x.device),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _dropout(attrs, inputs, aux, is_train):
-    """Inverted dropout in training; the identity otherwise.  The mask
-    comes from torch's generator, so it never matches the JAX package's
-    (threefry) mask: compare the two only at ``p=0`` or in inference."""
+    """:func:`dropout` in training; the identity otherwise."""
     x = inputs[0]
     if not is_train or attrs["p"] <= 0.0:
         return [x]
-    return [F.dropout(x, p=attrs["p"], training=True)]
+    return [dropout(x, attrs["p"])]
 
 
-register("Dropout", _dropout, params={"p": (pfloat, 0.5)}, hint="dropout")
+register("Dropout", _dropout, params={"p": (pfloat, 0.5)}, hint="dropout",
+         draws=True)
 
 
 def _concat(attrs, inputs, aux, is_train):

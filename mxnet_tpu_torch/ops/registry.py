@@ -9,11 +9,19 @@ for an op registered with ``updates_aux=True``, like BatchNorm's moving
 statistics).  Forward shape and dtype
 inference is derived from ``apply`` by running it on ``meta`` tensors,
 where the JAX package uses ``jax.eval_shape``.
+
+An op with no inputs (``_zeros``) makes its output on
+:func:`scope_device`: the executor's device while it walks a graph,
+``meta`` during shape inference, the CPU otherwise.  An op registered
+with ``draws=True`` (``Dropout``, the ``RNN`` op) draws from
+``mx.random``'s run-time generator of its device.
 """
 
 from __future__ import annotations
 
 import ast
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -22,12 +30,30 @@ from ..base import MXNetError
 
 __all__ = ["OpDef", "register", "simple", "get", "list_ops", "REQUIRED",
            "pbool", "pint", "pfloat", "pstr", "ptuple", "pdtype",
-           "torch_dtype"]
+           "torch_dtype", "device_scope", "scope_device"]
 
 _REGISTRY: dict[str, "OpDef"] = {}
 _ALIASES: dict[str, str] = {}
 
 REQUIRED = object()
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def device_scope(device):
+    """Within the block, ops with no inputs make their outputs on
+    ``device`` (this thread only)."""
+    prev = getattr(_scope, "device", None)
+    _scope.device = torch.device(device)
+    try:
+        yield
+    finally:
+        _scope.device = prev
+
+
+def scope_device():
+    """The device of :func:`device_scope`, the CPU outside one."""
+    return getattr(_scope, "device", None) or torch.device("cpu")
 
 
 # -- attr parsers (strings from graph JSON / user kwargs -> python) --------
@@ -92,7 +118,7 @@ def _as_fn(x):
 class OpDef:
     def __init__(self, name, apply_fn, *, arguments=("data",), aux_states=(),
                  outputs=("output",), params=None, hint=None,
-                 updates_aux=False, key_var_num_args=None):
+                 updates_aux=False, key_var_num_args=None, draws=False):
         self.name = name
         self._apply = apply_fn
         #: apply_fn returns (outputs, new aux values or None)
@@ -105,6 +131,8 @@ class OpDef:
         #: the attr that counts a variadic op's inputs (Concat's
         #: ``num_args``), filled from the positional inputs when omitted
         self.key_var_num_args = key_var_num_args
+        #: apply draws from ``mx.random``'s run-time generator in training
+        self.draws = draws
         #: optional backward shape rule, attached by ops/infer.py:
         #: (attrs, in_shapes, in_dtypes, aux_shapes) -> (in_shapes, aux_shapes)
         self.infer_inputs = None
@@ -159,7 +187,7 @@ class OpDef:
     def infer(self, attrs, in_metas, aux_metas):
         """Output ``meta`` tensors (shape + dtype, no data) for ``meta``
         inputs — the InferShape/InferType pass."""
-        with torch.inference_mode():
+        with torch.inference_mode(), device_scope("meta"):
             return self.apply(attrs, in_metas, aux_metas, False)
 
 

@@ -19,7 +19,12 @@ of ``mxnet_tpu/ops/rnn.py``.
   Gate order: LSTM ``i, f, g, o``; GRU ``r, z, n``.
 
 Data layout is time-major ``(T, N, C)``.  Dropout between layers
-(``p > 0`` in training) is not ported yet and raises.
+(``p > 0`` in training): the input of every layer after the first (the
+directions concatenated) goes through ``nn.dropout``, drawn from
+``mx.random``'s generator of the device, as torch ops before that
+layer's input projection (on the card each LSTM layer still runs K5 and
+K6); in inference it is the identity, as in
+``mxnet_tpu/ops/rnn.py:157-163``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
+from .nn import dropout
 from .registry import REQUIRED, pbool, pfloat, pint, pstr, ptuple, register
 from .rnn_kernel import lstm_seq
 
@@ -125,14 +131,14 @@ def _rnn(attrs, inputs, aux, is_train):
     h = attrs["state_size"]
     bidir = attrs["bidirectional"]
     d = 2 if bidir else 1
-    if is_train and attrs["p"] > 0.0 and num_layers > 1:
-        raise MXNetError("RNN: dropout between layers (p=%g) in training is "
-                         "not ported yet" % attrs["p"])
+    p = attrs["p"]
 
     layout = _layer_param_slices(x.shape[2], h, num_layers, mode, bidir)
     cur = x
     hs, cs = [], []
     for layer in range(num_layers):
+        if layer > 0 and is_train and p > 0.0:
+            cur = dropout(cur, p)
         outs = []
         for direction in range(d):
             sl = layout[layer * d + direction][2]
@@ -188,4 +194,4 @@ register(
             "mode": (pstr, REQUIRED), "bidirectional": (pbool, False),
             "p": (pfloat, 0.0), "state_outputs": (pbool, False),
             "pkeep_": (pfloat, 1.0), "lstm_q_": (pbool, False)},
-    hint="rnn")
+    hint="rnn", draws=True)

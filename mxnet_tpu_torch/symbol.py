@@ -321,12 +321,40 @@ class Symbol:
 
     # -- operators --------------------------------------------------------
     def __add__(self, other):
-        mod = sys.modules[__name__]
-        if isinstance(other, Symbol):
-            return mod.elemwise_add(self, other)
-        return mod._plus_scalar(self, scalar=float(other))
+        return _binop(self, other, "elemwise_add", "_plus_scalar")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return _binop(self, other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return _binop(self, other, None, "_rminus_scalar")
+
+    def __mul__(self, other):
+        return _binop(self, other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return _binop(self, other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return _binop(self, other, None, "_rdiv_scalar")
+
+    def __neg__(self):
+        return _binop(self, -1.0, None, "_mul_scalar")
+
+
+def _binop(lhs, rhs, arr_op, scalar_op):
+    """``lhs <op> rhs``: the elementwise op on two symbols, the scalar op
+    (``scalar=float(rhs)``) otherwise."""
+    mod = sys.modules[__name__]
+    if isinstance(rhs, Symbol):
+        if arr_op is None:
+            raise MXNetError("unsupported symbol-symbol op")
+        return getattr(mod, arr_op)(lhs, rhs)
+    return getattr(mod, scalar_op)(lhs, scalar=float(rhs))
 
 
 def Variable(name, attr=None, shape=None, dtype=None, init=None, **kwargs):

@@ -8,7 +8,9 @@ parts that do not need one from failing there first."""
 import importlib.util
 import os
 
+import numpy as np
 import pytest
+import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -150,6 +152,133 @@ def test_mnist_fit_helper_runs_on_the_cpu(tmp_path):
                                            1, name, params)
     assert type(mod._optimizer).__name__ == "NAG"
     assert metrics["cross-entropy"] == metrics["cross-entropy"]  # not NaN
+
+
+def _tiny_lstm(monkeypatch, smoke):
+    """Phase 9's and phase 17's LSTM constants at a CPU size."""
+    for name, value in (("LSTM_VOCAB", 30), ("LSTM_EMBED", 8),
+                        ("LSTM_HIDDEN", 8), ("LSTM_BATCH", 4),
+                        ("LSTM_BUCKETS", (5, 10)),
+                        ("LSTM_TRAIN_SENTENCES", 24),
+                        ("LSTM_VAL_SENTENCES", 12)):
+        monkeypatch.setattr(smoke, name, value)
+
+
+def test_rnn_toolkit_step_helpers_run_on_the_cpu(monkeypatch):
+    """Phase 17's steps at a CPU size: the unfused stack's step and the
+    fused cell's from the same weights (both TNC), carried with
+    ``unpack_weights``, agree within its 1e-4 bound; a step with dropout
+    repeats bit for bit from its seed and differs from the p=0 step; the
+    NT and TN iterators of phase 9's corpus give the same batches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import lstm_lm
+
+    smoke = _script("chip_smoke")
+    _tiny_lstm(monkeypatch, smoke)
+    ids = np.random.RandomState(0).randint(1, 30, (10, 4)).astype(np.float32)
+    init = smoke._lstm_module(mx, lstm_lm, mx.cpu(), key=10)
+    init.bind([("data", ids.shape)], [("softmax_label", ids.shape)])
+    mx.init.seed(0)
+    init.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    fused = mx.convert.module_params_to_numpy(init)[0]
+    cell = lstm_lm.build_cell(8, 2)
+    unfused = {k: v.asnumpy() if hasattr(v, "asnumpy") else v
+               for k, v in cell.unpack_weights(fused).items()}
+    gu = smoke.lstm_step_updates(mx, lstm_lm, mx.cpu(), unfused, ids,
+                                 cell=lstm_lm.build_stack(8, 2))
+    fu = {k: v.asnumpy() if hasattr(v, "asnumpy") else v
+          for k, v in cell.unpack_weights(smoke.lstm_step_updates(
+              mx, lstm_lm, mx.cpu(), fused, ids)).items()}
+    assert smoke._update_distances("t", "cpu", gu, fu, None, "u") <= 1.0
+    drop = lstm_lm.build_cell(8, 2, dropout=0.5)
+    a, b = (smoke.lstm_step_updates(mx, lstm_lm, mx.cpu(), fused, ids,
+                                    cell=drop, draw_seed=3)
+            for _ in range(2))
+    plain = smoke.lstm_step_updates(mx, lstm_lm, mx.cpu(), fused, ids)
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    assert not np.array_equal(a["lstm_parameters"], plain["lstm_parameters"])
+    _t, tn = smoke._lstm_corpus_iters(mx, lstm_lm, 0, "TN")
+    _t, nt = smoke._lstm_corpus_iters(mx, lstm_lm, 0, "NT")
+    for x, y in zip(tn, nt):
+        assert x.bucket_key == y.bucket_key
+        np.testing.assert_array_equal(x.data[0].asnumpy().T,
+                                      y.data[0].asnumpy())
+
+
+def test_update_distances_bound_and_refusal():
+    smoke = _script("chip_smoke")
+    want = {"w": np.ones(4)}
+    assert smoke._update_distances("t", "x", {"w": np.ones(4) * (1 + 5e-5)},
+                                   want, None, "u") == pytest.approx(0.5)
+    # a floor above 1e-4 widens the bound to 3x the floor
+    floor = {"w": np.ones(4) * 1.001}
+    assert smoke._update_distances("t", "x", {"w": np.ones(4) * 1.002},
+                                   want, floor, "u") == pytest.approx(
+                                       2 / 3, rel=1e-6)
+    with pytest.raises(RuntimeError, match="of the norm"):
+        smoke._update_distances("t", "x", {"w": np.ones(4) * 1.01}, want,
+                                None, "u")
+
+
+def test_lstm_checking_and_dropout_counting_on_the_cpu():
+    """``lstm_checking`` holds what a route sends to the kernel against the
+    plain version on the same inputs (here a plain version scaled by
+    1 + 1e-3 stands in for the kernel); ``dropout_counted`` sums what the
+    ``RNN`` op's dropout keeps."""
+    import types
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as nn_rnn
+    from mxnet_tpu_torch.ops import rnn_kernel
+
+    smoke = _script("chip_smoke")
+
+    def fake_kernel(*args):
+        return [t * (1 + 1e-3) for t in rnn_kernel.lstm_infer_plain(*args)]
+
+    rk = types.SimpleNamespace(
+        _route=lambda x, cuda_fn, plain_fn: cuda_fn)
+    rs = np.random.RandomState(0)
+    args = [torch.from_numpy(rs.normal(0, 0.5, s).astype(np.float32))
+            for s in ((5, 4, 2, 3), (4, 3, 3), (4, 3), (2, 3), (2, 3))]
+    errs = {}
+    with smoke.lstm_checking(rk, errs):
+        rk._route(args[0], fake_kernel, rnn_kernel.lstm_infer_plain)(*args)
+    assert list(errs) == ["fake_kernel"]
+    assert errs["fake_kernel"][0] == pytest.approx([1e-3] * 3,
+                                                   rel=1e-3)
+    kept = []
+    op = mx.ops.get("RNN")
+    attrs = op.canonicalize_attrs(dict(state_size=50, num_layers=2,
+                                       mode="lstm", p=0.5))
+    x = torch.from_numpy(rs.normal(0, 1, (20, 10, 4)).astype(np.float32))
+    params = torch.from_numpy(rs.normal(0, 0.3, mx.ops.rnn.rnn_param_size(
+        4, 50, 2, "lstm")).astype(np.float32))
+    zeros = torch.zeros(2, 10, 50)
+    with smoke.dropout_counted(nn_rnn, kept), torch.no_grad():
+        op.apply(attrs, [x, params, zeros, zeros], [], True)
+    assert nn_rnn.dropout is mx.ops.nn.dropout
+    assert len(kept) == 1 and kept[0][1] == 10000
+    assert abs(int(kept[0][0]) / 10000 - 0.5) < 0.03
+
+
+def test_sequential_fit_helper_runs_on_the_cpu(tmp_path):
+    """Phase 17d's fit helper on the CPU: the first batches of
+    ``MNISTIter`` through the MLP feature module and the Python loss head
+    move every parameter; a perturbed run starts from the same weights."""
+    import mxnet_tpu_torch as mx
+
+    smoke = _script("chip_smoke")
+    paths = mx.models.lenet.synth_mnist(str(tmp_path), num_train=256,
+                                        num_val=128)
+    before, after, acc = smoke.sequential_fit(mx, paths, mx.cpu(), 0)
+    assert sorted(before) == ["fc1_bias", "fc1_weight", "fc2_bias",
+                              "fc2_weight", "fc3_bias", "fc3_weight"]
+    assert all(not np.array_equal(before[k], after[k]) for k in before)
+    assert 0.0 <= acc <= 1.0
+    p0, _p1, _acc = smoke.sequential_fit(mx, paths, mx.cpu(), 0,
+                                         perturb=(1e-7, 0))
+    assert all(np.array_equal(before[k], p0[k]) for k in before)
 
 
 def test_decode_traffic_is_seeded_and_shaped():

@@ -1626,3 +1626,188 @@ def test_controller_moves_a_replica_between_two_cards(cuda_device):
     finally:
         ctl.close()
         reg.close()
+
+
+# -- the rest of the RNN toolkit: dropout, unfused cells ----------------------
+@pytest.mark.cuda
+def test_rnn_op_dropout_on_the_card(cuda_device):
+    """The ``RNN`` op in training at p=0.5 (3 LSTM layers, 100,000 units a
+    layer input): K5 and K6 launch once per layer; the output equals the
+    layers run one at a time through K5 with ``nn.dropout`` of each later
+    layer's input drawn in the same order from the card's generator;
+    each mask keeps 0.5 +- 0.01; kept elements are
+    ``x / keep`` bit for bit and dropped ones 0; the second layer's input
+    weights get no gradient from dropped units; inference is the op at
+    p=0 (K4)."""
+    t_, n_, nin, nh, layers, p = 50, 40, 8, 50, 3, 0.5
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.normal(0, 0.5, (t_, n_, nin)).astype(
+        np.float32)).to(cuda_device)
+    size = mx.ops.rnn.rnn_param_size(nin, nh, layers, "lstm")
+    params = torch.from_numpy(rs.normal(0, 0.1, size).astype(
+        np.float32)).to(cuda_device).requires_grad_(True)
+    zeros = torch.zeros(layers, n_, nh, device=cuda_device)
+    op = mx.ops.get("RNN")
+
+    def attrs(p_, n_layers=layers):
+        return op.canonicalize_attrs(dict(state_size=nh, num_layers=n_layers,
+                                          mode="lstm", p=p_))
+
+    gen = mx.random.generator(cuda_device)
+    state = gen.get_state()
+    rnn_kernel.lstm_fwd_cuda.launches = rnn_kernel.lstm_bwd_cuda.launches = 0
+    got = op.apply(attrs(p), [x, params, zeros, zeros], [], True)[0]
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert (rnn_kernel.lstm_fwd_cuda.launches,
+            rnn_kernel.lstm_bwd_cuda.launches) == (layers, layers)
+    gen.set_state(state)
+    slices = mx.ops.rnn._layer_param_slices(nin, nh, layers, "lstm", False)
+    cur, masks = x, []
+    with torch.no_grad():
+        p_leaf = params.detach().requires_grad_(True)
+    for layer, _d, sl in slices:
+        if layer > 0:
+            dropped = mx.ops.nn.dropout(cur, p)
+            keep = dropped != 0
+            masks.append(keep)
+            assert torch.equal(dropped[keep], cur[keep] / 0.5)
+            cur = dropped
+        blob = torch.cat([p_leaf[o:o + int(np.prod(s))] for o, s in (
+            sl[k] for k in ("wx", "wh", "bx", "bh"))])
+        cur = op.apply(attrs(0.0, 1), [cur, blob, zeros[:1], zeros[:1]],
+                       [], True)[0]
+    # the same masks: equal up to cuBLAS's choice of product for the
+    # blob's other alignment
+    torch.testing.assert_close(got, cur, rtol=1e-6, atol=1e-7)
+    for keep in masks:
+        assert keep.numel() == 100000
+        assert abs(float(keep.float().mean()) - 0.5) < 0.01
+    # one step of one row: a dropped unit's column gets no gradient
+    one = torch.from_numpy(rs.normal(0, 1, (1, 1, nin)).astype(
+        np.float32)).to(cuda_device)
+    small = torch.from_numpy(rs.normal(0, 0.3, mx.ops.rnn.rnn_param_size(
+        nin, 64, 2, "lstm")).astype(np.float32)).to(
+        cuda_device).requires_grad_(True)
+    z2 = torch.zeros(2, 1, 64, device=cuda_device)
+    a2 = op.canonicalize_attrs(dict(state_size=64, num_layers=2,
+                                    mode="lstm", p=p))
+    state = gen.get_state()
+    op.apply(a2, [one, small, z2, z2], [], True)[0].sum().backward()
+    gen.set_state(state)
+    kept = (torch.rand((1, 1, 64), generator=gen, device=cuda_device)
+            < 0.5).reshape(-1)
+    off, shape = mx.ops.rnn._layer_param_slices(nin, 64, 2, "lstm",
+                                                False)[1][2]["wx"]
+    gwx = small.grad[off:off + shape[0] * shape[1]].reshape(shape)
+    assert 10 < int(kept.sum()) < 54
+    assert torch.all(gwx[:, ~kept] == 0)
+    assert torch.all(gwx[:, kept].abs().sum(0) > 0)
+    with torch.no_grad():
+        infer = op.apply(attrs(p), [x, params, zeros, zeros], [], False)[0]
+        plain = op.apply(attrs(0.0), [x, params, zeros, zeros], [], False)[0]
+    torch.testing.assert_close(infer, plain, rtol=0, atol=0)
+
+
+def _lm_step(ctx, cell, layout, params, ids, seed=0):
+    """One SGD step of the small LSTM LM on ``ctx`` from ``params``
+    (``ids`` time-major): {name: update}."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    data = ids if layout == "TNC" else np.ascontiguousarray(ids.T)
+    label = np.concatenate([ids[1:], np.zeros_like(ids[:1])])
+    label = label if layout == "TNC" else np.ascontiguousarray(label.T)
+    mod = mx.mod.BucketingModule(
+        lstm_lm.make_sym_gen(cell, 50, 16, 16, layout=layout),
+        default_bucket_key=ids.shape[0], context=ctx)
+    mod.bind([("data", data.shape)], [("softmax_label", data.shape)])
+    mod.init_params(mx.init.Zero())
+    mx.convert.set_module_params(mod, params, {})
+    mod.init_optimizer(optimizer_params={"learning_rate": 0.5})
+    mx.random.seed(seed)
+    mod.forward_backward(mx.io.DataBatch(
+        [mx.nd.array(data)], [mx.nd.array(label)], bucket_key=ids.shape[0],
+        provide_data=[mx.io.DataDesc("data", data.shape)],
+        provide_label=[mx.io.DataDesc("softmax_label", data.shape)]))
+    mod.update()
+    after = mx.convert.module_params_to_numpy(mod)[0]
+    return {k: after[k] - params[k] for k in params}
+
+
+@pytest.mark.cuda
+def test_unfused_step_matches_the_fused_step(cuda_device):
+    """One step of ``lstm_bucketing.py``'s unfused stack (no kernel
+    launched) against the fused cell's step through K5/K6, from the same
+    weights carried with ``unpack_weights``, both in TNC (``Module``
+    takes the batch size, and so ``rescale_grad``, from the data's first
+    axis): each update within 1e-4 of its norm."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    rs = np.random.RandomState(4)
+    ids = rs.randint(1, 50, (10, 8)).astype(np.float32)
+    cell = lstm_lm.build_cell(16, 2)
+    size = mx.ops.rnn.rnn_param_size(16, 16, 2, "lstm")
+    fused = {"embed_weight": rs.normal(0, 0.3, (50, 16)),
+             "lstm_parameters": rs.normal(0, 0.3, size),
+             "pred_weight": rs.normal(0, 0.3, (50, 16)),
+             "pred_bias": np.zeros(50)}
+    fused = {k: v.astype(np.float32) for k, v in fused.items()}
+    unfused = {k: v.asnumpy() if hasattr(v, "asnumpy") else v
+               for k, v in cell.unpack_weights(fused).items()}
+    counts = [rnn_kernel.lstm_infer_cuda, rnn_kernel.lstm_fwd_cuda,
+              rnn_kernel.lstm_bwd_cuda]
+    for c in counts:
+        c.launches = 0
+    gu = _lm_step(mx.gpu(0), lstm_lm.build_stack(16, 2), "TNC", unfused, ids)
+    assert [c.launches for c in counts] == [0, 0, 0]
+    fu = _lm_step(mx.gpu(0), lstm_lm.build_cell(16, 2), "TNC", fused, ids)
+    assert [c.launches for c in counts] == [0, 2, 2]
+    fu = {k: v.asnumpy() if hasattr(v, "asnumpy") else v
+          for k, v in cell.unpack_weights(fu).items()}
+    assert sorted(fu) == sorted(gu)
+    for k in gu:
+        norm = np.linalg.norm(fu[k])
+        assert norm > 0, k
+        assert np.linalg.norm(gu[k] - fu[k]) <= 1e-4 * norm, k
+
+
+@pytest.mark.cuda
+def test_captured_step_draws_a_fresh_dropout_mask_each_replay(
+        cuda_device, monkeypatch):
+    """A fused (captured) step of a graph with ``Dropout`` at lr 0: the
+    warm-up and two replays see the same weights and batch, so their
+    outputs differ only through the masks, and they all differ; the
+    generator's state moves with each replay.  The same seed replays the
+    same three masks."""
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1")
+    rs = np.random.RandomState(0)
+    batch = mx.io.DataBatch([mx.nd.array(rs.normal(0, 1, (8, 32)).astype(
+        np.float32))], [mx.nd.array(rs.randint(0, 4, 8).astype(np.float32))])
+
+    def run():
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Dropout(
+            mx.sym.Variable("data"), p=0.5), num_hidden=4, name="fc"),
+            name="softmax")
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.bind([("data", (8, 32))], [("softmax_label", (8,))])
+        mx.init.seed(1)
+        mod.init_params(mx.init.Xavier())
+        mod.init_optimizer(optimizer_params={"learning_rate": 0.0})
+        mx.random.seed(5)
+        outs, states = [], []
+        for _ in range(3):
+            mod.forward_backward(batch)
+            mod.update()
+            outs.append(mod.get_outputs()[0].asnumpy())
+            states.append(mx.random.get_state()["op_generators"]["cuda:0"])
+        assert mod._exec.graph_replays == 2
+        return outs, states
+
+    outs, states = run()
+    assert not np.array_equal(outs[0], outs[1])
+    assert not np.array_equal(outs[1], outs[2])
+    assert states[0] != states[1] != states[2]
+    again, again_states = run()
+    for a, b in zip(outs, again):
+        np.testing.assert_array_equal(a, b)
+    assert again_states == states

@@ -494,7 +494,10 @@ def test_greedy_streams_through_a_kill_and_its_replacement_equal_jax():
     """Four greedy sessions on two replicas; one replica is hard-killed
     at the pool's third step, its sessions finish on the survivor, the
     controller replaces it, and four more sessions run on the survivor and
-    the replacement.  Every stream is the JAX engine's."""
+    the replacement.  Every stream is the JAX engine's.  The policy keeps
+    two replicas (an idle replacement is not scaled away on a slow host
+    before the second batch reaches it), and the replacement's engine is
+    taken as soon as two replicas are live."""
     jcfg = jtlm.LMConfig(*CFG)
     jeng = JaxEngine(jcfg, jtlm.init_params(jcfg, seed=3), name="lm",
                      **OPTS)
@@ -503,7 +506,8 @@ def test_greedy_streams_through_a_kill_and_its_replacement_equal_jax():
         want = [s.result(60) for s in want]
     finally:
         jeng.close()
-    pool, reg, ctl = _stack(interval_ms=30, backoff_base=0.01)
+    pool, reg, ctl = _stack(interval_ms=30, backoff_base=0.01,
+                            policy_opts={"min_replicas": 2})
     ctl.start()
     try:
         _wait(lambda: ctl.describe()["models"], "never adopted the pool")
@@ -516,9 +520,9 @@ def test_greedy_streams_through_a_kill_and_its_replacement_equal_jax():
         _wait(lambda: _decided(ctl, "restart")
               and len(_live(pool)) == 2, pool.describe)
         new = max(r.rid for r in pool.replicas)
+        eng = {r.rid: r.engine for r in pool.replicas}[new]
         sess = [pool.generate(p, max_new_tokens=12) for p in PROMPTS]
         assert [s.result(60) for s in sess] == want
-        eng = {r.rid: r.engine for r in pool.replicas}[new]
         assert eng.tokens_out > 0  # the replacement served
     finally:
         faults.disarm()

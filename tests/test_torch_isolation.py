@@ -39,7 +39,10 @@ def test_import_loads_no_jax_and_no_mxnet_tpu():
             "mxnet_tpu_torch.serving.frontend, mxnet_tpu_torch.faults, "
             "mxnet_tpu_torch.serving.controller, "
             "mxnet_tpu_torch.serving.batcher, "
-            "mxnet_tpu_torch.serving.registry\n"
+            "mxnet_tpu_torch.serving.registry, "
+            "mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.models.lstm_lm, "
+            "mxnet_tpu_torch.module.sequential_module, "
+            "mxnet_tpu_torch.module.python_module\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -107,6 +110,26 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
                            engine_opts={"slots": 1,
                                         "prefill_buckets": (4,)})
     assert mx.gpu(0).device_type == "gpu" and mx.current_context() == mx.cpu()
+
+
+def test_rnn_toolkit_entry_points_default_to_the_card(monkeypatch):
+    """The unfused LM's ``BucketingModule`` and a ``SequentialModule``'s
+    ``Module`` stage default to the card and raise without one; the
+    unfused cells' graphs bind on the card by default too."""
+    from mxnet_tpu_torch.models import lstm_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sym_gen = lstm_lm.make_sym_gen(lstm_lm.build_stack(4, 2), 10, 4, 4,
+                                   layout="NTC")
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        mx.mod.BucketingModule(sym_gen, default_bucket_key=5)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        mx.mod.SequentialModule().add(mx.mod.Module(
+            mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=2)))
+    out, _ = mx.rnn.GRUCell(3).unroll(2, mx.sym.Variable("x"),
+                                      merge_outputs=True)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        out.simple_bind(x=(2, 2, 3))
 
 
 def test_cpu_path_leaves_the_kernel_count_at_zero():

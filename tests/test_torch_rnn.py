@@ -202,11 +202,20 @@ def test_rnn_op_above_512_columns_matches_jax(monkeypatch):
 
 
 def test_rnn_op_refuses_training_dropout_between_layers():
+    """The refusal is gone: dropout between layers runs in training (and
+    draws), and inference is unchanged (the identity there)."""
     net = tmx.sym.RNN(tmx.sym.Variable("x"), state_size=4, num_layers=2,
                       mode="lstm", p=0.3, name="rnn")
     ex = net.simple_bind(tmx.cpu(), grad_req="write", x=(3, 2, 4))
-    with pytest.raises(tmx.MXNetError, match="not ported yet"):
-        ex.forward(is_train=True)
+    ex.arg_dict["x"][:] = np.ones((3, 2, 4), np.float32)
+    ex.arg_dict["rnn_parameters"][:] = np.full(
+        ex.arg_dict["rnn_parameters"].shape, 0.1, np.float32)
+    state = tmx.random.get_state()
+    train = ex.forward(is_train=True)[0].asnumpy()
+    assert tmx.random.get_state()["op_generators"]["cpu"] != \
+        state["op_generators"].get("cpu")
+    ex.backward()
+    assert train.shape == (3, 2, 4) and np.isfinite(train).all()
     assert ex.forward(is_train=False)[0].shape == (3, 2, 4)
 
 
