@@ -281,8 +281,29 @@
    ``SequentialModule``, 8 ``MNISTIter`` batches on the card and on the
    CPU from one seed: updates within 1e-4 of their norms (3x the CPU's
    perturbed floor), training accuracy within 0.02.
-18. Prints the kernel table (K1-K6 and K3b) as one JSON line, the card's
-   name and power limit, then the result line.
+18. SSD-VGG16 (BASELINE #4) and the classic classifiers, every line with
+   the card's name and power limit.  18a: ``example/ssd/train.py``'s fit
+   of SSD300 (``get_symbol_train(num_classes=20)``, 300x300, b32, f32)
+   over 4 batches of ``synth_detection_set`` through ``NDArrayIter`` and
+   ``Module.fit`` with ``MultiBoxMetric`` (SGD lr 0.002, momentum 0.9, wd
+   5e-4), classic and with ``MXNET_FUSE_TRAIN_STEP=1`` (MultiBoxTarget
+   inside the captured step; 3 replays in 4 steps): step ms, images/s,
+   the metric's host read, peak memory allocated and reserved, a profile
+   of one classic step; one b4 step on the card against the CPU within
+   3x the floor of three CPU steps on inputs perturbed by 1e-6.  18b: the
+   trained weights through the deploy graph and the port's ``Detector``
+   at b32, two passes, one K7 launch each and no plain NMS on the card;
+   the synthetic VOC mAP printed, not judged; K7 on that batch's own
+   inputs (7308 boxes an image) against its plain version run on the
+   card: equal class ids, scores and boxes within 1e-6; timed beside the
+   plain version and the bound.  18c: VGG-16 with and without
+   ``batch_norm``, GoogLeNet (256x256), Inception-BN and AlexNet, b32
+   (224x224), 3 steps each through ``Module.fit``: step ms, peak memory,
+   one K1 and one K2 launch per BatchNorm a step (13 and 69), every K1/K2
+   call of one more step held on its own tensors; one Inception-BN b4
+   step against the CPU, all updates within 3x the perturbed distance.
+19. Prints the kernel table (K1-K6, K3b and K7) as one JSON line, the
+   card's name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
 """
@@ -1109,10 +1130,11 @@ def bn_checking(bnk, errs):
     return reroute
 
 
-def checked_step(mod, batch, bnk):
-    """One more training step in which every K1 and K2 call is held, on
-    the main path's own tensors, against :func:`bn_checking`'s references;
-    each error of a kernel's output must stay within ``BN_STEP_TOL``."""
+def checked_step(mod, batch, bnk, n_bn=51, net="training"):
+    """One more training step in which every K1 and K2 call (``n_bn`` of
+    each) is held, on the main path's own tensors, against
+    :func:`bn_checking`'s references; each error of a kernel's output must
+    stay within ``BN_STEP_TOL``."""
     errs = {}
     with bn_rerouted(bnk, bn_checking(bnk, errs)):
         mod.forward_backward(batch)
@@ -1124,14 +1146,14 @@ def checked_step(mod, batch, bnk):
             for out, e in err.items():
                 if e >= worst.get(out, (-1.0,))[0]:
                     worst[out] = (e, shape)
-        print("training checked step: %d %s calls on the step's own "
+        print("%s checked step: %d %s calls on the step's own "
               "tensors, worst error by output %s" % (
-                  len(calls), kernel, ", ".join(
+                  net, len(calls), kernel, ", ".join(
                       "%s %.3g at %s" % (k, v[0], v[1])
                       for k, v in worst.items())), flush=True)
-        if len(calls) != 51:
+        if len(calls) != n_bn:
             raise RuntimeError("%s ran %d times in the checked step, "
-                               "expected 51" % (kernel, len(calls)))
+                               "expected %d" % (kernel, len(calls), n_bn))
         bad = {k: v for k, v in worst.items()
                if not k.startswith("plain_") and not v[0] <= BN_STEP_TOL}
         if bad:
@@ -2288,7 +2310,8 @@ def checkpoint_phase(mx, bnk, seed, steps, sync_free):
 
 def step_updates(mx, make_module, ctx, x, y, seed):
     """One fit step of ``make_module(mx, ctx)`` from seeded Xavier weights
-    on ``ctx``: ({name: update}, {aux name: value}) as numpy."""
+    on ``ctx``: ({name: update}, {aux name: value}, {name: value after the
+    step}) as numpy."""
     it = mx.io.NDArrayIter(x, y, batch_size=x.shape[0])
     mod = make_module(mx, ctx)
     mod.bind(it.provide_data, it.provide_label)
@@ -2299,14 +2322,21 @@ def step_updates(mx, make_module, ctx, x, y, seed):
     mod.fit(it, num_epoch=1, optimizer_params={
         "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
     arg, aux = mx.convert.module_params_to_numpy(mod)
-    return {k: arg[k] - before[k] for k in arg}, aux
+    return {k: arg[k] - before[k] for k in arg}, aux, arg
 
 
 def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
-                 net="ResNet-50", image=(3, 224, 224), pixels=(0, 255)):
+                 net="ResNet-50", image=(3, 224, 224), pixels=(0, 255),
+                 step=step_updates, data=None, perturb=1e-7,
+                 bound="tensor"):
     """One fit step of the same network (``make_module``'s, named ``net``)
     on the card and on the CPU, on a
-    ``PARITY_BATCH`` of ``image``-shaped inputs uniform in ``pixels``.
+    ``PARITY_BATCH`` of ``image``-shaped inputs uniform in ``pixels``
+    (or on ``data``, an ``(x, y)`` pair), through ``step`` (by default
+    :func:`step_updates`; SSD's takes its detection labels); the floor's
+    inputs are perturbed by ``perturb`` relative.  With ``bound="global"``
+    the distance over all updates is held within 3x the largest perturbed
+    one, and the per-tensor ratios are printed, not bounded.
 
     The first step of a randomly initialized ResNet-50 is ill-conditioned:
     on the CPU alone, an input perturbed by 1e-7 relative moves the
@@ -2321,21 +2351,23 @@ def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
     against the card step through the kernels.  The moving statistics, a
     forward quantity, are held to ``rtol=1e-4, atol=1e-5``."""
     rng = np.random.default_rng(seed + 1)
-    x = rng.uniform(*pixels, (PARITY_BATCH,) + tuple(image)).astype(
-        np.float32)
-    y = rng.integers(0, 1000, PARITY_BATCH).astype(np.float32)
-    xps = [(x * (1 + 1e-7 * rng.standard_normal(x.shape))).astype(np.float32)
-           for _ in range(PARITY_PERTURBATIONS)]
+    if data is None:
+        x = rng.uniform(*pixels, (PARITY_BATCH,) + tuple(image)).astype(
+            np.float32)
+        y = rng.integers(0, 1000, PARITY_BATCH).astype(np.float32)
+    else:
+        x, y = data
+    xps = [(x * (1 + perturb * rng.standard_normal(x.shape))).astype(
+        np.float32) for _ in range(PARITY_PERTURBATIONS)]
     t = time.perf_counter()
-    gu, gaux = step_updates(mx, make_module, mx.gpu(0), x, y, seed)
+    gu, gaux, _ = step(mx, make_module, mx.gpu(0), x, y, seed)
     gs = time.perf_counter() - t
     with bn_rerouted(bnk, lambda kernel, plain: plain):
-        qu, _ = step_updates(mx, make_module, mx.gpu(0), x, y, seed)
+        qu = step(mx, make_module, mx.gpu(0), x, y, seed)[0]
     t = time.perf_counter()
-    cu, caux = step_updates(mx, make_module, mx.cpu(), x, y, seed)
+    cu, caux, cvals = step(mx, make_module, mx.cpu(), x, y, seed)
     cs = time.perf_counter() - t
-    pus = [step_updates(mx, make_module, mx.cpu(), xp, y, seed)[0]
-           for xp in xps]
+    pus = [step(mx, make_module, mx.cpu(), xp, y, seed)[0] for xp in xps]
 
     names = sorted(cu)
     norm = math.sqrt(sum(float(np.sum(cu[k] ** 2)) for k in names))
@@ -2343,33 +2375,44 @@ def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
     def dists(a, b):
         return np.array([float(np.linalg.norm(a[k] - b[k])) for k in names])
 
-    floor = np.max([dists(p, cu) for p in pus], axis=0)
+    # no tensor is held below f32 rounding: one ulp of each of its values,
+    # or f32's epsilon of the whole update's norm
+    ulp = np.array([float(np.linalg.norm(np.spacing(cvals[k])))
+                    for k in names])
+    floor = np.maximum(np.max([dists(p, cu) for p in pus], axis=0),
+                       np.maximum(ulp, np.finfo(np.float32).eps * norm))
     card, plain_bn = dists(gu, cu), dists(gu, qu)
     ratio = card / np.maximum(floor, 1e-30)
     worst = int(np.argmax(ratio))
     wq = int(np.argmax(plain_bn / np.maximum(floor, 1e-30)))
     gb = [i for i, k in enumerate(names) if k.endswith(("_gamma", "_beta"))]
-    gbw = gb[int(np.argmax(ratio[gb]))]
+    gbw = gb[int(np.argmax(ratio[gb]))] if gb else worst
 
     def glob(d):
         return math.sqrt(float(np.sum(d ** 2))) / norm
 
-    aux_err = max(np.abs(gaux[k] - caux[k]).max() / (1e-5 + 1e-4 * np.abs(
-        caux[k]).max()) for k in caux)
+    aux_err = max([np.abs(gaux[k] - caux[k]).max() / (1e-5 + 1e-4 * np.abs(
+        caux[k]).max()) for k in caux], default=0.0)
     print("parity one fit step b%d %s, card (%.2f s) vs CPU plain "
           "versions (%.2f s): updates differ by %.3g of their norm, the CPU "
-          "on %d perturbed inputs by %s; per tensor, card distance over the "
+          "on %d inputs perturbed by %.0e relative by %s; per tensor, card distance over the "
           "largest perturbed distance: median %.3g, worst %.3g at %s "
           "(limit 3), worst gamma/beta %.3g at %s; witness with the plain "
           "BatchNorm on the card: it differs from the card's kernel step by "
           "%.3g of the norm, worst %.3g of the floor at %s (not bounded); "
           "moving-stat error %.3g of its limit"
-          % (PARITY_BATCH, net, gs, cs, glob(card), PARITY_PERTURBATIONS,
+          % (PARITY_BATCH, net, gs, cs, glob(card), PARITY_PERTURBATIONS, perturb,
              ["%.3g" % glob(dists(p, cu)) for p in pus], np.median(ratio),
              ratio[worst], names[worst], ratio[gbw], names[gbw],
              glob(plain_bn), plain_bn[wq] / max(floor[wq], 1e-30),
              names[wq], aux_err), flush=True)
-    if not ratio[worst] <= 3:
+    if bound == "global":
+        limit = max(glob(dists(p, cu)) for p in pus)
+        if not glob(card) <= 3 * limit:
+            raise RuntimeError("card and CPU updates of %s disagree by %.3g "
+                               "of their norm, beyond 3x the perturbed %.3g"
+                               % (net, glob(card), limit))
+    elif not ratio[worst] <= 3:
         raise RuntimeError("card and CPU updates of %s disagree beyond 3x "
                            "the f32 floor: %.3g vs %.3g" % (
                                names[worst], card[worst], floor[worst]))
@@ -5101,6 +5144,403 @@ def rnn_toolkit_phase(mx, rk, seed, smi, fused):
     return k4, k5, k6
 
 
+# -- SSD-VGG16 (BASELINE #4) and the classic classifiers (phase 18) ---------
+#: example/ssd/train.py at VOC's 20 classes and the reference's batch of 32
+SSD_IMAGE, SSD_BATCH, SSD_CLASSES, SSD_STEPS = 300, 32, 20, 4
+#: train.py's SGD defaults
+SSD_OPT = {"learning_rate": 0.002, "momentum": 0.9, "wd": 5e-4}
+#: SSD300's anchors: 38^2*3 + (19^2 + 10^2 + 5^2 + 3^2 + 1) * 6
+SSD_ANCHORS = 7308
+#: the deploy graph's NMS (ssd_vgg16.get_symbol's defaults)
+SSD_NMS, SSD_FORCE = 0.5, True
+#: K7's operations per IoU (4 max/min, 6 differences, 2 clamps, 3
+#: products, a sum, a difference, the division and the comparison)
+NMS_IOU_OPS = 19
+#: the classic classifiers: (network, kwargs, image side); GoogLeNet's
+#: fixed 7x7 average pool needs 256 (at 224 its last map is 6x6)
+CLASSIC_NETS = (("vgg", {}, 224), ("vgg", {"batch_norm": True}, 224),
+                ("googlenet", {}, 256), ("inception-bn", {}, 224),
+                ("alexnet", {}, 224))
+CLASSIC_BATCH, CLASSIC_STEPS = 32, 3
+
+
+def _ssd_module(mx, ssd, ctx=None):
+    net = ssd.get_symbol_train(num_classes=SSD_CLASSES)
+    return mx.mod.Module(net, label_names=("label",)) if ctx is None \
+        else mx.mod.Module(net, label_names=("label",), context=ctx)
+
+
+def _detection_iter(mx, x, y, batch):
+    return mx.io.NDArrayIter({"data": x}, {"label": y}, batch_size=batch,
+                             label_name="label")
+
+
+def ssd_step_updates(mx, make_module, ctx, x, y, seed):
+    """:func:`step_updates` for SSD: one step of ``train.py``'s fit with
+    ``MultiBoxMetric`` on detection labels ``y``."""
+    from mxnet_tpu_torch.models import ssd_vgg16
+
+    it = _detection_iter(mx, x, y, x.shape[0])
+    mod = make_module(mx, ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mx.init.seed(seed)
+    mod.init_params(mx.init.Xavier())
+    before = mx.convert.module_params_to_numpy(mod)[0]
+    mod.fit(it, num_epoch=1, eval_metric=ssd_vgg16.MultiBoxMetric(),
+            optimizer_params=dict(SSD_OPT))
+    arg, aux = mx.convert.module_params_to_numpy(mod)
+    return {k: arg[k] - before[k] for k in arg}, aux, arg
+
+
+def _step_events():
+    events = []
+
+    def mark(_param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    return events, mark
+
+
+def _steps_ms(start, events):
+    return [start.elapsed_time(events[0])] + [
+        a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def _finite_params(label, mod):
+    arg, aux = mod.get_params()
+    bad = [k for k, v in list(arg.items()) + list(aux.items())
+           if not torch.isfinite(v._t).all()]
+    if bad:
+        raise RuntimeError("%s produced non-finite parameters %s"
+                           % (label, bad[:5]))
+
+
+def ssd_training_phase(mx, bnk, ssd, nms, seed, smi):
+    """Phase 18a: ``train.py``'s fit of SSD300 (VOC's 20 classes, b32,
+    300x300, f32) over ``SSD_STEPS`` batches of ``synth_detection_set``
+    on the card, classic and then with ``MXNET_FUSE_TRAIN_STEP=1`` (one
+    eager warm-up and a capture, then replays), with ``MultiBoxMetric``.
+    Each run ends with finite parameters and metric values, launches no
+    K7 (NMS is not on the training path), and the captured run replays
+    in every step after the first.  Prints step ms (CUDA events between
+    batch ends, the first step apart), images/s, peak memory allocated
+    and reserved, the metric's host read of the three outputs (timed
+    apart) and a profile of one classic step.  Then one b4 step on the
+    card against the CPU within 3x the perturbed f32 floor
+    (:func:`parity_phase`), its inputs perturbed by 1e-6 relative: without
+    BatchNorm nothing amplifies a 1e-7 perturbation, while cuDNN runs
+    some of SSD's f32 convolutions through FFTs (``fft2d_r2c``,
+    ``pointwise_mult_and_sum_complex`` in the profile), whose rounding
+    moved a bias update 3.7x that floor in one run.  Returns the classic
+    run's module."""
+    x, y = ssd.synth_detection_set(SSD_BATCH * SSD_STEPS, SSD_IMAGE,
+                                   SSD_CLASSES, seed=5 + seed)
+    out = None
+    for fused in (False, True):
+        name = "captured" if fused else "classic"
+        it = _detection_iter(mx, x, y, SSD_BATCH)
+        mod = _ssd_module(mx, ssd)
+        metric = ssd.MultiBoxMetric()
+        events, mark = _step_events()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        with environment({"MXNET_FUSE_TRAIN_STEP": "1" if fused else None,
+                          "MXNET_BULK_TRAIN_STEPS": None}):
+            mx.init.seed(seed)
+            nms.greedy_nms_cuda.launches = 0
+            start.record()
+            t0 = time.perf_counter()
+            mod.fit(it, eval_metric=metric, optimizer="sgd",
+                    optimizer_params=dict(SSD_OPT),
+                    initializer=mx.init.Xavier(), num_epoch=1,
+                    batch_end_callback=[mark])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.max_memory_reserved() / 1e9)
+        step_ms = _steps_ms(start, events)
+        steady = float(np.median(step_ms[1:]))
+        names, values = metric.get()
+        replays = mod._exec.graph_replays
+        t0 = time.perf_counter()
+        probe = ssd.MultiBoxMetric()
+        probe.update([], mod.get_outputs())
+        read_ms = (time.perf_counter() - t0) * 1e3
+        out_mb = sum(math.prod(o.shape) for o in mod.get_outputs()) * 4 / 1e6
+        print("ssd300 %s b%d f32 on the card (%s): fit of %d steps %.2f s "
+              "(init and bind included); step ms %s (CUDA events between "
+              "batch ends; the metric's host read inside); median after "
+              "the first %.2f ms = %.1f images/s; graph replays %d; "
+              "MultiBoxMetric %s; its read of the three outputs (%.1f MB) "
+              "and update %.2f ms; peak memory allocated %.2f GB, "
+              "reserved %.2f GB; K7 launches %d"
+              % (name, SSD_BATCH, smi, SSD_STEPS, fit_s,
+                 ["%.2f" % t for t in step_ms], steady,
+                 SSD_BATCH / steady * 1e3, replays,
+                 dict(zip(names, ["%.4f" % v for v in values])), out_mb,
+                 read_ms, peak[0], peak[1], nms.greedy_nms_cuda.launches),
+              flush=True)
+        _finite_params("ssd300 " + name, mod)
+        if not all(np.isfinite(values)):
+            raise RuntimeError("ssd300 %s: metric values %s" % (name, values))
+        if nms.greedy_nms_cuda.launches:
+            raise RuntimeError("ssd300 training launched K7")
+        if fused and replays != SSD_STEPS - 1:
+            raise RuntimeError("ssd300 captured: %d replays in %d steps"
+                               % (replays, SSD_STEPS))
+        if not fused:
+            it.reset()
+            profile_step(mod, next(it), steady)
+            out = mod
+        else:
+            del mod
+        torch.cuda.empty_cache()
+    rs = np.random.RandomState(seed + 18)
+    pick = rs.choice(len(x), PARITY_BATCH, replace=False)
+    parity_phase(mx, bnk, seed, lambda mx, ctx=None: _ssd_module(mx, ssd,
+                                                                 ctx),
+                 "SSD300", step=ssd_step_updates, data=(x[pick], y[pick]),
+                 perturb=1e-6)
+    return out
+
+
+def nms_ops(keep_sorted, cid_sorted, force):
+    """IoUs the greedy loop computes on this data: for each visited box
+    still kept and valid, one against each later valid box (of its class
+    unless ``force``); times ``NMS_IOU_OPS``."""
+    total = 0
+    for keep, cid in zip(keep_sorted, cid_sorted):
+        valid = cid >= 0
+        later = np.cumsum(valid[::-1])[::-1] - valid
+        alive = keep & valid
+        if force:
+            total += int(later[alive].sum())
+        else:
+            for c in np.unique(cid[alive]):
+                same = cid == c
+                lc = np.cumsum(same[::-1])[::-1] - same
+                total += int(lc[alive & same].sum())
+    return total * NMS_IOU_OPS
+
+
+def ssd_detection_phase(mx, ssd, ssd_detect, contrib, nms, mod, seed, smi):
+    """Phase 18b: the trained weights of 18a through the deploy graph
+    (``get_symbol``: ``SoftmaxActivation``, ``MultiBoxDetection`` with NMS
+    0.5, ``force_suppress``, top 400) and the port's ``Detector`` at b32
+    on the card: two ``detect`` passes over 32 images of
+    ``synth_detection_set`` (seed 99), one K7 launch each, no plain NMS
+    on the card; the VOC mAP of the kept rows printed, not judged (random
+    weights after a few steps).  Then K7 on that batch's own inputs
+    against its plain version run on the card: equal class ids, scores
+    and boxes within 1e-6; K7's time (CUDA events, 10 launches) beside
+    the plain version's (one call), the bound (the larger of the bytes,
+    each input read once and the mask written, over 3.35 TB/s, and the
+    IoUs this data needs over 67 TFLOP/s f32) and no library call (core
+    PyTorch has no NMS).  Returns K7's row for the kernels line."""
+    x, labels = ssd.synth_detection_set(SSD_BATCH, SSD_IMAGE, SSD_CLASSES,
+                                        seed=99 + seed)
+    arg, aux = mod.get_params()
+    plain = nms.greedy_nms_plain
+
+    def refused(boxes, *a):
+        if boxes.is_cuda:
+            raise RuntimeError("plain NMS called on the card")
+        return plain(boxes, *a)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd300")
+        mx.model.save_checkpoint(prefix, 1, mod.symbol, arg, aux)
+        deploy = ssd.get_symbol(num_classes=SSD_CLASSES)
+        det = ssd_detect.Detector(deploy, prefix, 1, SSD_IMAGE,
+                                  mean_pixels=(0, 0, 0),
+                                  batch_size=SSD_BATCH)
+        nms.greedy_nms_plain = refused
+        try:
+            nms.greedy_nms_cuda.launches = 0
+            det.detect(mx.io.NDArrayIter(data=x, batch_size=SSD_BATCH))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = det.detect(mx.io.NDArrayIter(data=x,
+                                                   batch_size=SSD_BATCH))
+            torch.cuda.synchronize()
+            det_s = time.perf_counter() - t0
+            launches = nms.greedy_nms_cuda.launches
+        finally:
+            nms.greedy_nms_plain = plain
+    if launches != 2:
+        raise RuntimeError("detection launched K7 %d times in 2 passes"
+                           % launches)
+    aps, mean_ap = ssd_detect.eval_detections(results, list(labels),
+                                              SSD_CLASSES)
+    kept = [len(r) for r in results]
+    # K7's own inputs for this batch, from the deploy graph's internals
+    inner = deploy.get_internals()
+    heads = mx.sym.Group([inner["cls_prob_output"],
+                          inner["multibox_loc_pred_output"],
+                          inner["multibox_anchors_output"]])
+    ex = heads.simple_bind(mx.gpu(0), data=x.shape)
+    ex.copy_params_from(arg, aux, allow_extra_params=True)
+    ex.arg_dict["data"][:] = x
+    cls_prob, loc, anchors = [o._t for o in ex.forward(is_train=False)]
+    anchors = anchors.reshape(-1, 4)
+    if anchors.shape[0] != SSD_ANCHORS:
+        raise RuntimeError("SSD300 has %d anchors, expected %d"
+                           % (anchors.shape[0], SSD_ANCHORS))
+    variances = (0.1, 0.1, 0.2, 0.2)
+    with torch.no_grad():
+        score, cid, boxes, order = contrib.nms_inputs(
+            cls_prob, loc, anchors, True, 0.01, variances)
+        rows = [contrib.multibox_detection(
+            cls_prob, loc, anchors, True, 0.01, SSD_NMS, SSD_FORCE, variances,
+            400, nms=fn) for fn in (nms.greedy_nms_cuda, plain)]
+        keep = nms.greedy_nms_cuda(boxes, cid, order, SSD_NMS, SSD_FORCE)
+        keep_p = plain(boxes, cid, order, SSD_NMS, SSD_FORCE)
+    torch.cuda.synchronize()
+    if not torch.equal(rows[0][..., 0], rows[1][..., 0]) \
+            or not torch.equal(keep, keep_p):
+        raise RuntimeError("K7 keeps %d boxes, its plain version %d "
+                           "(%d disagree)" % (
+                               int(keep.sum()), int(keep_p.sum()),
+                               int((keep != keep_p).sum())))
+    err = float((rows[0][..., 1:] - rows[1][..., 1:]).abs().max())
+    if err > 1e-6:
+        raise RuntimeError("K7's rows differ from the plain version's by "
+                           "%.3g" % err)
+    ms = _time_ms(lambda: nms.greedy_nms_cuda(boxes, cid, order, SSD_NMS,
+                                              SSD_FORCE), 10)
+    plain_ms = _time_ms(lambda: plain(boxes, cid, order, SSD_NMS,
+                                      SSD_FORCE), 1, warmup=0)
+    b, a = cid.shape
+    order_np = order.cpu().numpy()
+    keep_sorted = np.take_along_axis(keep.cpu().numpy(), order_np, 1)
+    cid_sorted = np.take_along_axis(cid.cpu().numpy(), order_np, 1)
+    ops = nms_ops(keep_sorted, cid_sorted, SSD_FORCE)
+    byte_ms = b * a * (16 + 4 + 4 + 1) / PEAK_BYTES * 1e3
+    op_ms = ops / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(byte_ms, op_ms)
+    bound_by = "bytes" if byte_ms >= op_ms else "operations"
+    print("ssd300 detection b%d on the card (%s): Detector.detect %.1f ms "
+          "(deploy forward, K7 and the host copy of the rows); kept rows "
+          "an image %s; synthetic VOC mAP %.4f (not judged); K7 launches "
+          "on the detection path %d; K7 at A=%d: keeps %d of %d valid "
+          "boxes, max_abs_err %.3g against its plain version, kernel %.4f "
+          "ms, plain %.2f ms, bound %.5f ms (%s: %.3g IoU operations, "
+          "%.3g MB), no library call (core PyTorch has no NMS)"
+          % (SSD_BATCH, smi, det_s * 1e3, kept, mean_ap, launches, a,
+             int((keep & (cid >= 0)).sum()), int((cid >= 0).sum()), err, ms,
+             plain_ms,
+             bound_ms, bound_by, ops, b * a * 25 / 1e6), flush=True)
+    return dict(name="greedy_nms", route="cuda",
+                source="mxnet_tpu_torch/csrc/nms.cu",
+                replaces="mxnet_tpu/ops/contrib.py:243", launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def _classic_module(network, kw):
+    def make(mx, ctx=None):
+        net = mx.models.get_symbol(network, num_classes=1000, **kw)
+        return mx.mod.Module(net) if ctx is None \
+            else mx.mod.Module(net, context=ctx)
+    return make
+
+
+def classic_phase(mx, bnk, seed, smi):
+    """Phase 18c: ``Module.fit`` of VGG-16 (with and without
+    ``batch_norm``), GoogLeNet, Inception-BN and AlexNet (1000 classes,
+    f32, b32) on the card for ``CLASSIC_STEPS`` batches of uniform data
+    from ``--seed``, SGD lr 0.01 momentum 0.9 wd 1e-4, Xavier (gaussian,
+    in, 2).  The BatchNorm networks launch K1 and K2 once per BatchNorm a
+    step, no plain BatchNorm on the card, and in one more step every K1
+    and K2 call is held against its references on its own tensors
+    (:func:`checked_step`); every network ends finite.  Prints step ms,
+    images/s and peak memory.  Then one Inception-BN b4 step on the card
+    against the CPU (:func:`parity_phase`), the distance over all updates
+    within 3x the largest of three perturbed CPU steps: per tensor, its
+    tail (7x7 maps at b4, 3x3 max pools of stride 1) sits at near-ties,
+    where the card's convolutions, rounded otherwise than the CPU's, route
+    a max-pool or ReLU gradient to another element and move one tensor's
+    update 59x its perturbed floor in one run, with the plain BatchNorm on
+    the card as with K1/K2.  Returns the K1 and K2 launches."""
+    total = [0, 0]
+    for network, kw, side in CLASSIC_NETS:
+        label = network + ("-bn" if kw.get("batch_norm") else "")
+        make = _classic_module(network, kw)
+        mod = make(mx)
+        n_bn = sum(net_bn_configs(mx, mod.symbol,
+                                  (CLASSIC_BATCH, 3, side, side)).values())
+        rng = np.random.default_rng(seed + 18)
+        n = CLASSIC_BATCH * CLASSIC_STEPS
+        x = rng.random((n, 3, side, side), dtype=np.float32) * 2 - 1
+        y = rng.integers(0, 1000, n).astype(np.float32)
+        it = mx.io.NDArrayIter(x, y, batch_size=CLASSIC_BATCH)
+        events, mark = _step_events()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        with bn_plain_refused(bnk):
+            mx.init.seed(seed)
+            bnk.bn_fwd_cuda.launches = 0
+            bnk.bn_bwd_cuda.launches = 0
+            start.record()
+            mod.fit(it, num_epoch=1, optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.01,
+                                      "momentum": 0.9, "wd": 1e-4},
+                    initializer=mx.init.Xavier(rnd_type="gaussian",
+                                               factor_type="in",
+                                               magnitude=2),
+                    batch_end_callback=[mark])
+            torch.cuda.synchronize()
+            launches = (bnk.bn_fwd_cuda.launches, bnk.bn_bwd_cuda.launches)
+        step_ms = _steps_ms(start, events)
+        steady = float(np.median(step_ms[1:]))
+        print("%s b%d %dx%d f32 on the card (%s): step ms %s (CUDA events "
+              "between batch ends); median after the first %.2f ms = %.1f "
+              "images/s; %d BatchNorms, K1 launches %d, K2 launches %d; "
+              "peak memory allocated %.2f GB, reserved %.2f GB"
+              % (label, CLASSIC_BATCH, side, side, smi,
+                 ["%.2f" % t for t in step_ms], steady,
+                 CLASSIC_BATCH / steady * 1e3, n_bn, launches[0],
+                 launches[1], torch.cuda.max_memory_allocated() / 1e9,
+                 torch.cuda.max_memory_reserved() / 1e9), flush=True)
+        want = n_bn * CLASSIC_STEPS
+        if launches != (want, want):
+            raise RuntimeError("%s: K1/K2 launched %s times, expected %d "
+                               "each" % (label, launches, want))
+        _finite_params(label, mod)
+        total = [total[0] + launches[0], total[1] + launches[1]]
+        if n_bn:
+            it.reset()
+            checked_step(mod, next(it), bnk, n_bn, label)
+        del mod, it
+        torch.cuda.empty_cache()
+    parity_phase(mx, bnk, seed, _classic_module("inception-bn", {}),
+                 "Inception-BN", (3, 224, 224), (-1, 1), bound="global")
+    return total
+
+
+def detection_phase(mx, bnk, seed, smi):
+    """Phase 18: SSD300 training (18a), detection through K7 (18b) and
+    the classic classifiers (18c).  Returns (K7's row, K1/K2 launches)."""
+    from mxnet_tpu_torch.models import ssd_detect, ssd_vgg16
+    from mxnet_tpu_torch.ops import contrib, nms_kernel
+
+    t0 = time.perf_counter()
+    mod = ssd_training_phase(mx, bnk, ssd_vgg16, nms_kernel, seed, smi)
+    t1 = time.perf_counter()
+    k7 = ssd_detection_phase(mx, ssd_vgg16, ssd_detect, contrib, nms_kernel,
+                             mod, seed, smi)
+    del mod
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    bn = classic_phase(mx, bnk, seed, smi)
+    print("phase 18 %.1f s: training %.1f, detection %.1f, classic %.1f"
+          % (time.perf_counter() - t0, t1 - t0, t2 - t1,
+             time.perf_counter() - t2), flush=True)
+    return k7, bn
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5176,6 +5616,7 @@ def main():
     decode = decode_phase(mx, args.seed)
     fleet_phase(mx, args.seed, decode.pop("reuse"))
     toolkit = rnn_toolkit_phase(mx, rk, args.seed, smi, lstm_fused)
+    k7_row, classic_bn = detection_phase(mx, bnk, args.seed, smi)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"
@@ -5184,7 +5625,8 @@ def main():
     # the BatchNorm rows: times summed over the 51 BatchNorms of one b128
     # ResNet-50 step, and under "inception_v3" over the 94 of one b128
     # Inception-v3 step; launches over the four fits of the main path
-    # (ResNet-50 and Inception-v3, classic and sync-free)
+    # (ResNet-50 and Inception-v3, classic and sync-free) and phase 18c's
+    # BatchNorm networks (VGG-16-BN and Inception-BN)
     inc_launches = [sum(inception[run]["launches"][i]
                         for run in ("classic", "sync_free"))
                     for i in (0, 1)]
@@ -5200,13 +5642,13 @@ def main():
                dict(name="batch_norm_fwd", route="cuda", source=source,
                     replaces="mxnet_tpu/ops/bn_pallas.py:87",
                     launches=k1_launches + sync_free["launches"][0]
-                    + inc_launches[0], **bn_totals["fwd"],
+                    + inc_launches[0] + classic_bn[0], **bn_totals["fwd"],
                     inception_v3=dict(inc_totals["fwd"],
                                       launches=inc_launches[0])),
                dict(name="batch_norm_bwd", route="cuda", source=source,
                     replaces="mxnet_tpu/ops/bn_pallas.py:110",
                     launches=k2_launches + sync_free["launches"][1]
-                    + inc_launches[1], **bn_totals["bwd"],
+                    + inc_launches[1] + classic_bn[1], **bn_totals["bwd"],
                     inception_v3=dict(inc_totals["bwd"],
                                       launches=inc_launches[1]))]
     # the LSTM rows: times at T=60, N=32, H=200 (the default bucket);
@@ -5221,6 +5663,9 @@ def main():
             name=kname, route="cuda", source="mxnet_tpu_torch/csrc/lstm.cu",
             replaces="mxnet_tpu/ops/rnn_pallas.py:%d" % line, launches=n,
             **lstm_rows[(kid, t_max)]))
+    # K7: launches over phase 18b's two detection passes, times at SSD300
+    # b32 (A = 7308) on that batch's own inputs
+    kernels.append(k7_row)
     print(json.dumps({"kernels": kernels}))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,23 @@
 """Model definitions built through ``mxnet_tpu_torch.symbol``."""
 
-from . import inception_v3, lenet, lstm_lm, mlp, resnet, transformer_lm
+from . import (alexnet, googlenet, inception_bn, inception_v3, lenet,
+               lstm_lm, mlp, resnet, ssd_detect, ssd_vgg16, transformer_lm,
+               vgg)
 from .long_context_lm import build_lm, copy_task
 
-__all__ = ["build_lm", "copy_task", "get_symbol", "inception_v3", "lenet",
-           "lstm_lm", "mlp", "resnet", "transformer_lm"]
+__all__ = ["alexnet", "build_lm", "copy_task", "get_symbol", "googlenet",
+           "inception_bn", "inception_v3", "lenet", "lstm_lm", "mlp",
+           "resnet", "ssd_detect", "ssd_vgg16", "transformer_lm", "vgg"]
 
 _BUILDERS = {
     "lenet": lenet.get_symbol,
     "mlp": mlp.get_symbol,
+    "alexnet": alexnet.get_symbol,
+    "vgg": vgg.get_symbol,
     "resnet": resnet.get_symbol,
+    "inception-bn": inception_bn.get_symbol,
     "inception-v3": inception_v3.get_symbol,
+    "googlenet": googlenet.get_symbol,
 }
 
 

@@ -1,6 +1,6 @@
 """Elementwise ops (counterpart of ``mxnet_tpu/ops/elemwise.py``): the
 binary ``elemwise_add/sub/mul/div`` that ``Symbol``'s arithmetic emits,
-and the scalar forms ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``.
+and the scalar forms ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``, and ``smooth_l1``.
 Each is one torch op (cuBLAS-free elementwise kernels on the card), as
 XLA lowers them in the JAX package."""
 
@@ -30,3 +30,13 @@ _scalar_op("_rminus_scalar", lambda data, scalar: scalar - data)
 _scalar_op("_mul_scalar", lambda data, scalar: data * scalar)
 _scalar_op("_div_scalar", lambda data, scalar: data / scalar)
 _scalar_op("_rdiv_scalar", lambda data, scalar: scalar / data)
+
+
+def _smooth_l1(data, scalar):
+    s2 = scalar * scalar
+    return torch.where(torch.abs(data) < 1.0 / s2,
+                       0.5 * torch.square(scalar * data),
+                       torch.abs(data) - 0.5 / s2)
+
+
+simple("smooth_l1", _smooth_l1, params={"scalar": (pfloat, 1.0)})

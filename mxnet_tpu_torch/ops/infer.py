@@ -182,7 +182,7 @@ def _like_output(attrs, out_shape, in_shapes):
 
 for _name in ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
               "_mul_scalar", "_div_scalar", "_rdiv_scalar", "ones_like",
-              "zeros_like"):
+              "zeros_like", "smooth_l1", "MakeLoss"):
     get(_name).infer_from_output = _like_output
 
 

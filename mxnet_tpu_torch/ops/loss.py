@@ -1,10 +1,15 @@
-"""Output ops (counterpart of ``mxnet_tpu/ops/loss.py``): ``SoftmaxOutput``.
+"""Output ops (counterpart of ``mxnet_tpu/ops/loss.py``): ``SoftmaxOutput``
+and ``MakeLoss``.
 
-Its backward is the reference's bespoke rule, not the autograd of the
-forward: ``grad = (p - onehot(label)) * grad_scale`` with the
-``normalization``/``use_ignore`` rules, the head gradient ignored unless
-``out_grad`` — a :class:`torch.autograd.Function`, as the JAX package
-wires it in with ``jax.custom_vjp`` (``mxnet_tpu/ops/loss.py:54-100``).
+Their backward is the reference's bespoke rule, not the autograd of the
+forward, and ignores the head gradient: for SoftmaxOutput ``grad = (p -
+onehot(label)) * grad_scale`` with the ``normalization``/``use_ignore``
+rules (the head gradient read only with ``out_grad``), for MakeLoss
+``grad = grad_scale`` normalized by the batch or by the count of elements
+above ``valid_thresh`` — each a :class:`torch.autograd.Function`, as the
+JAX package wires them in with ``jax.custom_vjp``
+(``mxnet_tpu/ops/loss.py:54-100``, ``:166-195``).  The valid count stays
+on the device.
 """
 
 from __future__ import annotations
@@ -84,3 +89,39 @@ register("SoftmaxOutput", _softmax_output, arguments=("data", "label"),
                  "preserve_shape": (pbool, False),
                  "normalization": (pstr, "null"), "out_grad": (pbool, False)},
          aliases=("Softmax",), hint="softmaxoutput")
+
+
+class MakeLossFn(torch.autograd.Function):
+    """Identity forward; the gradient ``grad_scale`` everywhere, divided
+    by the batch size (``normalization="batch"``) or by the count of
+    elements above ``valid_thresh`` (``"valid"``, at least 1)."""
+
+    @staticmethod
+    def forward(ctx, data, attrs):
+        ctx.save_for_backward(data)
+        ctx.attrs = attrs
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (data,) = ctx.saved_tensors
+        a = ctx.attrs
+        scale = a["grad_scale"]
+        if a["normalization"] == "batch":
+            scale = scale / data.shape[0]
+        elif a["normalization"] == "valid":
+            valid = (data > a["valid_thresh"]).to(data.dtype).sum()
+            scale = scale / torch.clamp(valid, min=1.0)
+        return torch.ones_like(data) * scale, None
+
+
+def _make_loss(attrs, inputs, aux, is_train):
+    data = inputs[0]
+    if torch.is_grad_enabled() and data.requires_grad:
+        return [MakeLossFn.apply(data, attrs)]
+    return [data]
+
+
+register("MakeLoss", _make_loss,
+         params={"grad_scale": (pfloat, 1.0), "valid_thresh": (pfloat, 0.0),
+                 "normalization": (pstr, "null")}, hint="makeloss")

@@ -1,6 +1,6 @@
 """Shape ops (counterpart of ``mxnet_tpu/ops/matrix.py``): ``Reshape``
-with MXNet's special codes, ``Flatten``, ``SwapAxis`` and
-``expand_dims``."""
+with MXNet's special codes, ``Flatten``, ``SwapAxis``,
+``expand_dims`` and ``transpose``."""
 
 from __future__ import annotations
 
@@ -73,3 +73,16 @@ simple("Reshape", _reshape,
 
 simple("SwapAxis", lambda data, dim1, dim2: data.transpose(dim1, dim2),
        params={"dim1": (pint, 0), "dim2": (pint, 0)}, aliases=("swapaxes",))
+
+
+def _opt_tuple(v):
+    if v in (None, "None"):
+        return None
+    return ptuple(v)
+
+
+def _transpose(data, axes):
+    return data.permute(axes if axes else tuple(reversed(range(data.ndim))))
+
+
+simple("transpose", _transpose, params={"axes": (_opt_tuple, None)})

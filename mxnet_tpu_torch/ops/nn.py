@@ -1,6 +1,7 @@
 """Layer ops (counterpart of ``mxnet_tpu/ops/nn.py``): ``FullyConnected``,
 ``Activation``, ``Convolution``, ``Pooling``, ``BatchNorm``, ``Dropout``,
-``Concat`` and ``SliceChannel``.
+``Concat``, ``SliceChannel``, ``SoftmaxActivation``, ``L2Normalization``
+and ``LRN``.
 
 FullyConnected, Activation, Convolution and Pooling are plain ``torch``
 calls in f32: the JAX package leaves them to XLA, outside any Pallas
@@ -262,3 +263,59 @@ register("SliceChannel", _slice_channel,
          params={"num_outputs": (pint, REQUIRED), "axis": (pint, 1),
                  "squeeze_axis": (pbool, False)},
          aliases=("split",), hint="slicechannel")
+
+
+def _softmax_activation(attrs, inputs, aux, is_train):
+    x = inputs[0]
+    if attrs["mode"] == "channel":
+        return [torch.softmax(x, dim=1)]
+    return [torch.softmax(x.reshape(x.shape[0], -1), dim=-1)
+            .reshape(x.shape)]
+
+
+register("SoftmaxActivation", _softmax_activation,
+         params={"mode": (pstr, "instance")}, hint="softmaxactivation")
+
+
+def _l2_normalization(attrs, inputs, aux, is_train):
+    x = inputs[0]
+    mode = attrs["mode"]
+    if mode == "instance":
+        red = tuple(range(1, x.ndim))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, x.ndim))
+    else:
+        raise MXNetError("L2Normalization: bad mode %r" % mode)
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=red, keepdim=True)
+                      + attrs["eps"])
+    return [x / norm]
+
+
+register("L2Normalization", _l2_normalization,
+         params={"eps": (pfloat, 1e-10), "mode": (pstr, "instance")},
+         hint="l2normalization")
+
+
+def _lrn(attrs, inputs, aux, is_train):
+    """Across-channel LRN: the window of ``nsize`` channels around each
+    (``nsize // 2`` before), summed in window order."""
+    x = inputs[0]
+    n = attrs["nsize"]
+    half = n // 2
+    sq = torch.square(x)
+    pad = [0, 0] * (x.ndim - 2) + [half, n - 1 - half]
+    sqp = F.pad(sq, pad)
+    c = x.shape[1]
+    ssum = sqp[:, 0:c]
+    for k in range(1, n):
+        ssum = ssum + sqp[:, k:k + c]
+    scale = attrs["knorm"] + (attrs["alpha"] / n) * ssum
+    return [x * torch.pow(scale, -attrs["beta"])]
+
+
+register("LRN", _lrn,
+         params={"alpha": (pfloat, 1e-4), "beta": (pfloat, 0.75),
+                 "knorm": (pfloat, 2.0), "nsize": (pint, REQUIRED)},
+         hint="lrn")

@@ -40,7 +40,7 @@ import torch
 
 from .base import MXNetError, Registry
 from .ndarray import NDArray, zeros
-from .random import get_seed
+from . import random as _random
 
 __all__ = ["Optimizer", "SGD", "NAG", "DCASGD", "SGLD", "ccSGD", "Adam",
            "AdaGrad", "RMSProp", "AdaDelta", "Test", "create", "register",
@@ -315,23 +315,25 @@ class DCASGD(Optimizer):
 class SGLD(Optimizer):
     """Stochastic gradient Langevin dynamics (``mxnet_tpu/optimizer.py``
     SGLD): ``w += -lr / 2 * (g + wd * w) + N(0, lr)``.  The noise is drawn
-    on the CPU from ``generator`` (by default one seeded with
-    ``mx.random``'s seed when the optimizer is made) and copied to the
-    weight's device, so a seed gives the same noise on every device; it
-    never matches the JAX package's threefry draws."""
+    on the CPU from ``generator``, by default ``mx.random``'s run-time
+    generator of the CPU (seeded by ``mx.random.seed``, carried by
+    ``get_state``/``set_state``, so a resumed fit draws the uninterrupted
+    noise), and copied to the weight's device, so a seed gives the same
+    noise on every device; it never matches the JAX package's threefry
+    draws."""
 
     def __init__(self, generator=None, **kwargs):
         super().__init__(**kwargs)
-        if generator is None:
-            generator = torch.Generator().manual_seed(get_seed())
         self.generator = generator
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         w = weight._t
+        gen = self.generator if self.generator is not None \
+            else _random.generator("cpu")
         noise = torch.empty(w.shape, dtype=w.dtype).normal_(
-            0.0, math.sqrt(lr), generator=self.generator).to(w.device)
+            0.0, math.sqrt(lr), generator=gen).to(w.device)
         with torch.no_grad():
             g = _scaled_grad(self, grad)
             w += (-lr / 2) * (g + wd * w) + noise

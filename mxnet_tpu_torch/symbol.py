@@ -22,7 +22,7 @@ from .attribute import AttrScope
 from .base import MXNetError, NameManager
 from .ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -357,19 +357,33 @@ def _binop(lhs, rhs, arr_op, scalar_op):
     return getattr(mod, scalar_op)(lhs, scalar=float(rhs))
 
 
-def Variable(name, attr=None, shape=None, dtype=None, init=None, **kwargs):
-    """A graph input; ``shape``, ``dtype`` and ``init`` (an initializer, or
-    its JSON ``dumps()``) are recorded as the ``__shape__``, ``__dtype__``
-    and ``__init__`` attrs."""
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, **kwargs):
+    """A graph input; ``shape``, ``lr_mult``, ``wd_mult``, ``dtype`` and
+    ``init`` (an initializer, or its JSON ``dumps()``) are recorded as the
+    ``__shape__``, ``__lr_mult__``, ``__wd_mult__``, ``__dtype__`` and
+    ``__init__`` attrs."""
     misc = AttrScope.current().get(attr)
     if shape is not None:
         misc["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        misc["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        misc["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
         misc["__dtype__"] = str(dtype)
     if init is not None:
         misc["__init__"] = init if isinstance(init, str) else init.dumps()
     misc.update({k: str(v) for k, v in kwargs.items()})
     return Symbol([(_Node(None, name, {}, [], misc), 0)])
+
+
+def Group(symbols):
+    """One symbol whose outputs are those of ``symbols``, in order."""
+    entries = []
+    for s in symbols:
+        entries.extend(s._outputs)
+    return Symbol(entries)
 
 
 def load_json(json_str):

@@ -448,3 +448,43 @@ def test_fleet_shed_check_holds_refusals_to_the_pressure():
                              spans)
     with pytest.raises(RuntimeError, match="nothing was shed"):
         smoke.check_shed([_client(200, 0.5, 9.0)], [low], [])
+
+
+def test_ssd_phase_helpers_run_on_the_cpu():
+    """Phase 18's SSD step helper at 96x96 b2 on the CPU (the parity
+    phase's step), its constants against the graphs (SSD300's 7308
+    anchors; the classic networks bind at their sides, VGG-16-BN with 13
+    BatchNorms and Inception-BN with 69), and its IoU count against the
+    greedy loop counted by brute force."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import ssd_vgg16
+
+    smoke = _script("chip_smoke")
+    x, y = ssd_vgg16.synth_detection_set(2, 96, smoke.SSD_CLASSES)
+    upd, aux, _ = smoke.ssd_step_updates(
+        mx, lambda mx, ctx=None: smoke._ssd_module(mx, ssd_vgg16, ctx),
+        mx.cpu(), x, y, 0)
+    assert aux == {} and all(np.isfinite(v).all() for v in upd.values())
+    assert np.abs(upd["multibox0_scale"]).max() > 0
+    net = ssd_vgg16.get_symbol_train(num_classes=smoke.SSD_CLASSES)
+    inner = net.get_internals()["multibox_anchors_output"]
+    _a, out, _x = inner.infer_shape(data=(1, 3, smoke.SSD_IMAGE,
+                                          smoke.SSD_IMAGE))
+    assert out[0] == (1, smoke.SSD_ANCHORS, 4)
+    bns = {}
+    for network, kw, side in smoke.CLASSIC_NETS:
+        mod = smoke._classic_module(network, kw)(mx, mx.cpu())
+        bns[network + str(kw)] = sum(smoke.net_bn_configs(
+            mx, mod.symbol, (2, 3, side, side)).values())
+        assert mod.symbol.infer_shape(data=(2, 3, side, side))[1] == \
+            [(2, 1000)]
+    assert bns == {"vgg{}": 0, "vgg{'batch_norm': True}": 13,
+                   "googlenet{}": 0, "inception-bn{}": 69, "alexnet{}": 0}
+    rs = np.random.RandomState(0)
+    for force in (True, False):
+        keep = rs.rand(3, 40) < 0.6
+        cid = rs.randint(-1, 3, (3, 40)).astype(np.float32)
+        want = sum(1 for b in range(3) for i in range(40) for p in
+                   range(i + 1, 40) if keep[b, i] and cid[b, i] >= 0
+                   and cid[b, p] >= 0 and (force or cid[b, p] == cid[b, i]))
+        assert smoke.nms_ops(keep, cid, force) == want * smoke.NMS_IOU_OPS

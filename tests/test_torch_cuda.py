@@ -1811,3 +1811,238 @@ def test_captured_step_draws_a_fresh_dropout_mask_each_replay(
     for a, b in zip(outs, again):
         np.testing.assert_array_equal(a, b)
     assert again_states == states
+
+
+def _dropout_mlp_module(lr, seed=1):
+    """A Dropout MLP on the card with Xavier weights from ``seed``."""
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(mx.sym.Dropout(
+        mx.sym.Activation(mx.sym.FullyConnected(
+            mx.sym.Variable("data"), num_hidden=64, name="fc1"),
+            act_type="relu"), p=0.5), num_hidden=4, name="fc2"),
+        name="softmax")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind([("data", (8, 32))], [("softmax_label", (8,))])
+    mx.init.seed(seed)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer_params={"learning_rate": lr,
+                                         "momentum": 0.9})
+    return mod
+
+
+def _dropout_batches(n):
+    rs = np.random.RandomState(0)
+    return [mx.io.DataBatch(
+        [mx.nd.array(rs.normal(0, 1, (8, 32)).astype(np.float32))],
+        [mx.nd.array(rs.randint(0, 4, 8).astype(np.float32))])
+        for _ in range(n)]
+
+
+def _dropout_steps(mod, batches):
+    """Outputs and parameters after each step."""
+    outs, params = [], []
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        outs.append(mod.get_outputs()[0].asnumpy())
+        params.append({k: v.asnumpy()
+                       for k, v in mod.get_params()[0].items()})
+    return outs, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr", [0.0, 0.1])
+def test_captured_step_draws_the_masks_of_an_eager_step(cuda_device,
+                                                        monkeypatch, lr):
+    """Four steps of a Dropout MLP from seed 5, captured
+    (``MXNET_FUSE_TRAIN_STEP=1``: a warm-up, then three replays) against
+    four eager two-phase steps: at lr 0 the outputs, which differ only
+    through the masks, are equal bit for bit; at lr 0.1 the outputs and
+    updates agree within 1e-6 of their largest magnitude (the two paths
+    run the same SGD arithmetic in other kernels)."""
+    batches = _dropout_batches(4)
+    runs = {}
+    for fuse in ("1", "0"):
+        monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", fuse)
+        mod = _dropout_mlp_module(lr)
+        mx.random.seed(5)
+        runs[fuse] = _dropout_steps(mod, batches)
+        assert mod._exec.graph_replays == (3 if fuse == "1" else 0)
+    (c_out, c_par), (e_out, e_par) = runs["1"], runs["0"]
+    for step in range(4):
+        if lr == 0.0:
+            np.testing.assert_array_equal(c_out[step], e_out[step])
+            continue
+        scale = np.abs(e_out[step]).max()
+        assert np.abs(c_out[step] - e_out[step]).max() <= 1e-6 * scale
+        for k, v in e_par[step].items():
+            assert np.abs(c_par[step][k] - v).max() <= \
+                1e-6 * np.abs(v).max(), (step, k)
+
+
+@pytest.mark.cuda
+def test_resumed_captured_fit_draws_the_uninterrupted_masks(cuda_device,
+                                                            monkeypatch):
+    """A captured Dropout fit at lr 0 (the masks alone move the outputs):
+    six steps uninterrupted, against three steps, then ``get_state`` ->
+    ``seed(123)`` -> ``set_state`` and a new module whose three steps are
+    a new warm-up and two replays of a new capture.  The last three
+    outputs are equal bit for bit."""
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1")
+    batches = _dropout_batches(6)
+    mx.random.seed(5)
+    whole, _ = _dropout_steps(_dropout_mlp_module(0.0), batches)
+    mx.random.seed(5)
+    mod = _dropout_mlp_module(0.0)
+    _dropout_steps(mod, batches[:3])
+    state = json.loads(json.dumps(mx.random.get_state()))
+    mx.random.seed(123)
+    mx.random.set_state(state)
+    mod = _dropout_mlp_module(0.0)
+    resumed, _ = _dropout_steps(mod, batches[3:])
+    assert mod._exec.graph_replays == 2
+    for a, b in zip(resumed, whole[3:]):
+        np.testing.assert_array_equal(a, b)
+
+
+# -- SSD (BASELINE #4): K7, the captured step; Inception-BN through K1/K2 ----
+def _nms_case(b, a, seed, classes=21, invalid=0.1, quantized=False):
+    """Random corner boxes, class ids (a share invalid) and a stable visit
+    order by score on the card; ``quantized`` snaps coordinates to a
+    1/8 grid and scores to tenths, so IoUs hit thresholds exactly and
+    scores tie."""
+    rs = np.random.RandomState(seed)
+    xy = rs.rand(b, a, 2) * 0.8
+    wh = rs.rand(b, a, 2) * 0.3 + 0.02
+    if quantized:
+        xy, wh = np.round(xy * 8) / 8, np.round(wh * 8) / 8 + 0.125
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    cls = rs.randint(0, classes, (b, a)).astype(np.float32)
+    cls[rs.rand(b, a) < invalid] = -1.0
+    score = rs.rand(b, a).astype(np.float32)
+    if quantized:
+        score = np.round(score, 1).astype(np.float32)
+    score[cls < 0] = -np.inf
+    order = np.argsort(-score, axis=1, kind="stable")
+    dev = torch.device("cuda", 0)
+    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(cls).to(dev),
+            torch.from_numpy(order).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", [True, False])
+@pytest.mark.parametrize("thresh", [0.45, 0.5])
+def test_k7_matches_plain_at_ssd300_b32(cuda_device, force, thresh):
+    """K7 at SSD300's shape (b32, 7308 boxes an image, 20 classes and a
+    tenth invalid): the keep mask equals the plain loop's, one launch."""
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    boxes, cls, order = _nms_case(32, 7308, 1)
+    before = nms_kernel.greedy_nms_cuda.launches
+    keep = nms_kernel.greedy_nms(boxes, cls, order, thresh, force)
+    torch.cuda.synchronize()
+    assert nms_kernel.greedy_nms_cuda.launches == before + 1
+    want = nms_kernel.greedy_nms_plain(boxes, cls, order, thresh, force)
+    assert torch.equal(keep, want)
+    assert 0 < int(keep.sum()) < keep.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [1, 2, 1023, 1025, 3000])
+@pytest.mark.parametrize("force", [True, False])
+def test_k7_on_ties(cuda_device, a, force):
+    """Boxes on a 1/8 grid (IoUs exactly at the 0.5 threshold, repeated
+    boxes at IoU 1), tied scores in index order, invalid boxes, fewer
+    boxes than threads and more: K7 keeps what the plain loop keeps, bit
+    for bit across two launches."""
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    boxes, cls, order = _nms_case(3, a, a, classes=3, invalid=0.2,
+                                  quantized=True)
+    if a > 1:
+        boxes[:, 1] = boxes[:, 0]
+        cls[:, 1] = cls[:, 0]
+    keep = nms_kernel.greedy_nms_cuda(boxes, cls, order, 0.5, force)
+    again = nms_kernel.greedy_nms_cuda(boxes, cls, order, 0.5, force)
+    want = nms_kernel.greedy_nms_plain(boxes, cls, order, 0.5, force)
+    assert torch.equal(keep, want) and torch.equal(keep, again)
+
+
+def _ssd_run(lr, fuse, monkeypatch, steps=3):
+    """``steps`` SSD steps (3 classes, 96x96, b2) on the card from one
+    seed: (outputs a step, parameters after each step, replays)."""
+    from mxnet_tpu_torch.models import ssd_vgg16
+
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", fuse)
+    x, y = ssd_vgg16.synth_detection_set(2 * steps, 96, 3)
+    mod = mx.mod.Module(ssd_vgg16.get_symbol_train(num_classes=3),
+                        label_names=("label",), context=mx.gpu(0))
+    mod.bind([("data", (2, 3, 96, 96))], [("label", (2, 3, 5))])
+    mx.init.seed(1)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer_params={"learning_rate": lr,
+                                         "momentum": 0.9, "wd": 5e-4})
+    outs, params = [], []
+    for i in range(steps):
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(x[2 * i:2 * i + 2])],
+            [mx.nd.array(y[2 * i:2 * i + 2])]))
+        mod.update()
+        outs.append([o.asnumpy() for o in mod.get_outputs()])
+        params.append({k: v.asnumpy()
+                       for k, v in mod.get_params()[0].items()})
+    return outs, params, mod._exec.graph_replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr", [0.0, 0.002])
+def test_captured_ssd_step_matches_an_eager_one(cuda_device, monkeypatch,
+                                                lr):
+    """Three SSD steps captured (``MXNET_FUSE_TRAIN_STEP=1``: MultiBoxTarget,
+    the valid-normalized SoftmaxOutput and MakeLoss inside one CUDA
+    graph, two replays) against three eager steps: at lr 0 every output
+    equal bit for bit (the matching, mining and losses), at lr 0.002 the
+    targets equal and the outputs and updates within 1e-5 of their
+    largest magnitude."""
+    c_out, c_par, replays = _ssd_run(lr, "1", monkeypatch)
+    e_out, e_par, _ = _ssd_run(lr, "0", monkeypatch)
+    assert replays == 2
+    for step in range(3):
+        np.testing.assert_array_equal(c_out[step][2], e_out[step][2])
+        for c, e in zip(c_out[step], e_out[step]):
+            if lr == 0.0:
+                np.testing.assert_array_equal(c, e)
+            else:
+                assert np.abs(c - e).max() <= 1e-5 * np.abs(e).max()
+        for k, v in e_par[step].items():
+            assert np.abs(c_par[step][k] - v).max() <= \
+                1e-5 * np.abs(v).max() + 1e-12, (step, k)
+
+
+@pytest.mark.cuda
+def test_inception_bn_step_launches_k1_and_k2_at_every_batchnorm(
+        cuda_device):
+    """One Module step of Inception-BN (b4, 3x224x224) on the card: one K1
+    and one K2 launch per BatchNorm node of the graph, none on the CPU;
+    the step matches the CPU's within 3x the floor of three perturbed CPU
+    steps, the moving statistics at ``rtol=1e-4, atol=1e-5``."""
+    net = mx.models.get_symbol("inception-bn", num_classes=1000)
+    n_bn = sum(1 for n in net._nodes()
+               if not n.is_variable and n.op.name == "BatchNorm")
+    rs = np.random.RandomState(0)
+    x = rs.uniform(-1, 1, (4, 3, 224, 224)).astype(np.float32)
+    y = rs.randint(0, 1000, 4).astype(np.float32)
+    gu, gaux, glaunch = _resnet50_step(net, mx.gpu(0), x, y)
+    cu, caux, claunch = _resnet50_step(net, mx.cpu(), x, y)
+    assert glaunch == (n_bn, n_bn) and claunch == (0, 0) and n_bn > 60
+
+    def dists(a, b):
+        return np.array([np.linalg.norm(a[k] - b[k]) for k in sorted(cu)])
+
+    floor = np.max([dists(_resnet50_step(net, mx.cpu(), (x * (
+        1 + 1e-7 * rs.standard_normal(x.shape))).astype(np.float32), y)[0],
+        cu) for _ in range(3)], axis=0)
+    ratio = dists(gu, cu) / np.maximum(floor, 1e-30)
+    assert ratio.max() <= 3, (sorted(cu)[int(ratio.argmax())], ratio.max())
+    for k in caux:
+        np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)

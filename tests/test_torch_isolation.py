@@ -42,7 +42,13 @@ def test_import_loads_no_jax_and_no_mxnet_tpu():
             "mxnet_tpu_torch.serving.registry, "
             "mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.models.lstm_lm, "
             "mxnet_tpu_torch.module.sequential_module, "
-            "mxnet_tpu_torch.module.python_module\n"
+            "mxnet_tpu_torch.module.python_module, "
+            "mxnet_tpu_torch.ops.contrib, mxnet_tpu_torch.ops.nms_kernel, "
+            "mxnet_tpu_torch.models.ssd_vgg16, "
+            "mxnet_tpu_torch.models.ssd_detect, mxnet_tpu_torch.models.vgg, "
+            "mxnet_tpu_torch.models.googlenet, "
+            "mxnet_tpu_torch.models.inception_bn, "
+            "mxnet_tpu_torch.models.alexnet\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -130,6 +136,53 @@ def test_rnn_toolkit_entry_points_default_to_the_card(monkeypatch):
                                       merge_outputs=True)
     with pytest.raises(mx.MXNetError, match="CUDA"):
         out.simple_bind(x=(2, 2, 3))
+
+
+def test_ssd_and_classic_model_entry_points_default_to_the_card(
+        monkeypatch, tmp_path):
+    """SSD's training ``Module``, its ``Detector`` over the deploy graph,
+    the deploy graph's executor and the classic models' ``Module`` default
+    to the card and raise without one; K7's wrapper raises on a CPU
+    tensor, and the routed NMS takes the plain version there."""
+    from mxnet_tpu_torch.models import ssd_detect, ssd_vgg16
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    train = ssd_vgg16.get_symbol_train(num_classes=2)
+    prefix = str(tmp_path / "ssd")
+    mx.model.save_checkpoint(prefix, 1, train, {}, {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        mx.mod.Module(train, label_names=("label",))
+    deploy = ssd_vgg16.get_symbol(num_classes=2)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        ssd_detect.Detector(deploy, prefix, 1, 64, (0, 0, 0))
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        deploy.simple_bind(data=(1, 3, 64, 64))
+    for network in ("alexnet", "vgg", "googlenet", "inception-bn"):
+        with pytest.raises(mx.MXNetError, match="CUDA"):
+            mx.mod.Module(mx.models.get_symbol(network, num_classes=4))
+    boxes = torch.zeros((1, 3, 4))
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        nms_kernel.greedy_nms_cuda(boxes, torch.zeros(1, 3),
+                                   torch.arange(3)[None], 0.5, True)
+    assert nms_kernel.greedy_nms_cuda.launches == 0
+
+
+@pytest.mark.parametrize("boxes,cls,order,match", [
+    ((2, 5, 3), (2, 5), (2, 5), r"\(B, A, 4\)"),
+    ((2, 5, 4), (2, 4), (2, 5), "must be"),
+    ((2, 5, 4), (2, 5), (5,), "must be"),
+    ((0, 5, 4), (0, 5), (0, 5), "no boxes"),
+])
+def test_nms_wrapper_rejects_what_k7_does_not_take(boxes, cls, order, match):
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    with pytest.raises(mx.MXNetError, match=match):
+        nms_kernel._check_inputs(torch.zeros(boxes), torch.zeros(cls),
+                                 torch.zeros(order, dtype=torch.int32))
+    with pytest.raises(mx.MXNetError, match="float32"):
+        nms_kernel._check_inputs(torch.zeros((1, 2, 4), dtype=torch.float64),
+                                 torch.zeros(1, 2), torch.zeros(1, 2))
 
 
 def test_cpu_path_leaves_the_kernel_count_at_zero():

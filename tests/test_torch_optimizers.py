@@ -313,3 +313,30 @@ def test_init_attribute_reaches_the_new_initializers():
     mod.init_params(tmx.init.Uniform(0.1))
     bias = mod.get_params()[0]["fc_bias"].asnumpy()
     np.testing.assert_array_equal(bias, [0, 0, 2, 2, 0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_resumed_sgld_draws_the_uninterrupted_noise(pkg):
+    """Seed 7 and three SGLD updates of two tensors, against the same run
+    resumed before its third update through ``get_state`` -> ``seed(123)``
+    -> ``set_state`` -> a new ``SGLD``: the weights end equal, in either
+    package, as the generator that draws the noise is ``mx.random``'s."""
+    mx = jmx if pkg == "jax" else tmx
+    ws, gs = _tensors(0)
+
+    def run(resume_at=None):
+        mx.random.seed(7)
+        opt = mx.optimizer.create("sgld", learning_rate=0.1, wd=0.01)
+        weights = [mx.nd.array(w) for w in ws[:2]]
+        for n, step in enumerate(gs[:3]):
+            if n == resume_at:
+                state = json.loads(json.dumps(mx.random.get_state()))
+                mx.random.seed(123)
+                mx.random.set_state(state)
+                opt = mx.optimizer.create("sgld", learning_rate=0.1, wd=0.01)
+            for i, (w, g) in enumerate(zip(weights, step[:2])):
+                opt.update(i, w, mx.nd.array(g), None)
+        return [w.asnumpy() for w in weights]
+
+    for got, want in zip(run(resume_at=2), run()):
+        np.testing.assert_array_equal(got, want)
