@@ -5153,6 +5153,7 @@ SSD_OPT = {"learning_rate": 0.002, "momentum": 0.9, "wd": 5e-4}
 SSD_ANCHORS = 7308
 #: the deploy graph's NMS (ssd_vgg16.get_symbol's defaults)
 SSD_NMS, SSD_FORCE = 0.5, True
+SSD_VARIANCES = (0.1, 0.1, 0.2, 0.2)
 #: K7's operations per IoU (4 max/min, 6 differences, 2 clamps, 3
 #: products, a sum, a difference, the division and the comparison)
 NMS_IOU_OPS = 19
@@ -5325,6 +5326,45 @@ def nms_ops(keep_sorted, cid_sorted, force):
     return total * NMS_IOU_OPS
 
 
+def mask_pass_pairs(cid_sorted):
+    """Pair tests K7's mask pass makes on this data: each block of a row
+    chunk and a column chunk at or right of it (64 visit positions each)
+    whose chunks both hold a valid box tests every valid row against the
+    64 columns."""
+    total = 0
+    for cid in cid_sorted:
+        n = -(-len(cid) // 64)
+        valid = np.zeros(n * 64, bool)
+        valid[:len(cid)] = cid >= 0
+        rows = valid.reshape(n, 64).sum(1)
+        later = np.cumsum((rows > 0)[::-1])[::-1]
+        total += int((rows * later).sum()) * 64
+    return total
+
+
+def ssd_k7_inputs(mx, contrib, deploy, arg, aux, x):
+    """K7's inputs for the batch ``x`` from the deploy graph's internals
+    under the weights ``arg``, ``aux``: (cls_prob, loc_pred, anchors,
+    class ids, boxes, visit order), the last three as MultiBoxDetection
+    hands them to NMS (threshold 0.01, clipped)."""
+    inner = deploy.get_internals()
+    heads = mx.sym.Group([inner["cls_prob_output"],
+                          inner["multibox_loc_pred_output"],
+                          inner["multibox_anchors_output"]])
+    ex = heads.simple_bind(mx.gpu(0), data=x.shape)
+    ex.copy_params_from(arg, aux, allow_extra_params=True)
+    ex.arg_dict["data"][:] = x
+    cls_prob, loc, anchors = [o._t for o in ex.forward(is_train=False)]
+    anchors = anchors.reshape(-1, 4)
+    if anchors.shape[0] != SSD_ANCHORS:
+        raise RuntimeError("SSD300 has %d anchors, expected %d"
+                           % (anchors.shape[0], SSD_ANCHORS))
+    with torch.no_grad():
+        _score, cid, boxes, order = contrib.nms_inputs(
+            cls_prob, loc, anchors, True, 0.01, SSD_VARIANCES)
+    return cls_prob, loc, anchors, cid, boxes, order
+
+
 def ssd_detection_phase(mx, ssd, ssd_detect, contrib, nms, mod, seed, smi):
     """Phase 18b: the trained weights of 18a through the deploy graph
     (``get_symbol``: ``SoftmaxActivation``, ``MultiBoxDetection`` with NMS
@@ -5338,7 +5378,13 @@ def ssd_detection_phase(mx, ssd, ssd_detect, contrib, nms, mod, seed, smi):
     the plain version's (one call), the bound (the larger of the bytes,
     each input read once and the mask written, over 3.35 TB/s, and the
     IoUs this data needs over 67 TFLOP/s f32) and no library call (core
-    PyTorch has no NMS).  Returns K7's row for the kernels line."""
+    PyTorch has no NMS); its time split into the mask pass and the scan
+    (each launched alone over one workspace, 10 launches), the workspace
+    MB and the mask pass's pair tests on this data.  Then one call at
+    ``_contrib_Proposal``'s inference size (B=1, A=6000, ``force``, IoU
+    0.7, visit order ``arange``) over the first image's top 6000 boxes,
+    held against the plain version on the card and timed beside it.
+    Returns K7's row for the kernels line."""
     x, labels = ssd.synth_detection_set(SSD_BATCH, SSD_IMAGE, SSD_CLASSES,
                                         seed=99 + seed)
     arg, aux = mod.get_params()
@@ -5375,26 +5421,13 @@ def ssd_detection_phase(mx, ssd, ssd_detect, contrib, nms, mod, seed, smi):
     aps, mean_ap = ssd_detect.eval_detections(results, list(labels),
                                               SSD_CLASSES)
     kept = [len(r) for r in results]
-    # K7's own inputs for this batch, from the deploy graph's internals
-    inner = deploy.get_internals()
-    heads = mx.sym.Group([inner["cls_prob_output"],
-                          inner["multibox_loc_pred_output"],
-                          inner["multibox_anchors_output"]])
-    ex = heads.simple_bind(mx.gpu(0), data=x.shape)
-    ex.copy_params_from(arg, aux, allow_extra_params=True)
-    ex.arg_dict["data"][:] = x
-    cls_prob, loc, anchors = [o._t for o in ex.forward(is_train=False)]
-    anchors = anchors.reshape(-1, 4)
-    if anchors.shape[0] != SSD_ANCHORS:
-        raise RuntimeError("SSD300 has %d anchors, expected %d"
-                           % (anchors.shape[0], SSD_ANCHORS))
-    variances = (0.1, 0.1, 0.2, 0.2)
+    cls_prob, loc, anchors, cid, boxes, order = ssd_k7_inputs(
+        mx, contrib, deploy, arg, aux, x)
     with torch.no_grad():
-        score, cid, boxes, order = contrib.nms_inputs(
-            cls_prob, loc, anchors, True, 0.01, variances)
         rows = [contrib.multibox_detection(
-            cls_prob, loc, anchors, True, 0.01, SSD_NMS, SSD_FORCE, variances,
-            400, nms=fn) for fn in (nms.greedy_nms_cuda, plain)]
+            cls_prob, loc, anchors, True, 0.01, SSD_NMS, SSD_FORCE,
+            SSD_VARIANCES, 400, nms=fn)
+            for fn in (nms.greedy_nms_cuda, plain)]
         keep = nms.greedy_nms_cuda(boxes, cid, order, SSD_NMS, SSD_FORCE)
         keep_p = plain(boxes, cid, order, SSD_NMS, SSD_FORCE)
     torch.cuda.synchronize()
@@ -5412,11 +5445,43 @@ def ssd_detection_phase(mx, ssd, ssd_detect, contrib, nms, mod, seed, smi):
                                               SSD_FORCE), 10)
     plain_ms = _time_ms(lambda: plain(boxes, cid, order, SSD_NMS,
                                       SSD_FORCE), 1, warmup=0)
+    _keep, work = nms.launch_parts(boxes, cid, order, SSD_NMS, SSD_FORCE)
+    mask_ms, scan_ms = [
+        _time_ms(lambda p=part: nms.launch_parts(
+            boxes, cid, order, SSD_NMS, SSD_FORCE, parts=p, work=work), 10)
+        for part in (nms.MASK, nms.SCAN)]
+    del work, _keep
     b, a = cid.shape
+    work_mb = nms.workspace_bytes(b, a) / 1e6
     order_np = order.cpu().numpy()
     keep_sorted = np.take_along_axis(keep.cpu().numpy(), order_np, 1)
     cid_sorted = np.take_along_axis(cid.cpu().numpy(), order_np, 1)
     ops = nms_ops(keep_sorted, cid_sorted, SSD_FORCE)
+    pairs = mask_pass_pairs(cid_sorted)
+    # rcnn's Proposal: its pre-NMS top 6000 boxes of one image, in score
+    # order, one class
+    n_prop = 6000
+    pb = boxes[0][order[0][:n_prop]][None].contiguous()
+    pc = torch.where(cid[0][order[0][:n_prop]] >= 0, 0.0, -1.0)[None]
+    po = torch.arange(n_prop, device=pb.device)[None]
+    with torch.no_grad():
+        pk = nms.greedy_nms_cuda(pb, pc, po, 0.7, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pk_p = plain(pb, pc, po, 0.7, True)
+        torch.cuda.synchronize()
+        prop_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(pk, pk_p):
+        raise RuntimeError("K7 at the Proposal size keeps %d boxes, its "
+                           "plain version %d" % (int(pk.sum()),
+                                                 int(pk_p.sum())))
+    prop_ms = _time_ms(lambda: nms.greedy_nms_cuda(pb, pc, po, 0.7, True),
+                       10)
+    print("K7 at rcnn Proposal's inference size (%s): B=1, A=%d, force, "
+          "IoU 0.7, the first image's top boxes: keeps %d, equal to its "
+          "plain version; kernel %.4f ms, plain %.1f ms, workspace %.1f MB"
+          % (smi, n_prop, int(pk.sum()), prop_ms, prop_plain_ms,
+             nms.workspace_bytes(1, n_prop) / 1e6), flush=True)
     byte_ms = b * a * (16 + 4 + 4 + 1) / PEAK_BYTES * 1e3
     op_ms = ops / PEAK_F32_FLOPS * 1e3
     bound_ms = max(byte_ms, op_ms)
@@ -5426,17 +5491,25 @@ def ssd_detection_phase(mx, ssd, ssd_detect, contrib, nms, mod, seed, smi):
           "an image %s; synthetic VOC mAP %.4f (not judged); K7 launches "
           "on the detection path %d; K7 at A=%d: keeps %d of %d valid "
           "boxes, max_abs_err %.3g against its plain version, kernel %.4f "
-          "ms, plain %.2f ms, bound %.5f ms (%s: %.3g IoU operations, "
-          "%.3g MB), no library call (core PyTorch has no NMS)"
+          "ms (launched apart: mask pass %.4f ms, scan %.4f ms; workspace "
+          "%.1f MB), plain %.2f ms, bound %.5f ms (%s: %.3g IoU "
+          "operations, %.3g MB); the mask pass tests %d pairs (%.3g times "
+          "the greedy loop's IoUs; %.4f ms at %d operations a pair over "
+          "67 TFLOP/s); no library call (core PyTorch has no NMS)"
           % (SSD_BATCH, smi, det_s * 1e3, kept, mean_ap, launches, a,
              int((keep & (cid >= 0)).sum()), int((cid >= 0).sum()), err, ms,
-             plain_ms,
-             bound_ms, bound_by, ops, b * a * 25 / 1e6), flush=True)
-    return dict(name="greedy_nms", route="cuda",
-                source="mxnet_tpu_torch/csrc/nms.cu",
-                replaces="mxnet_tpu/ops/contrib.py:243", launches=launches,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+             mask_ms, scan_ms, work_mb, plain_ms, bound_ms, bound_by, ops,
+             b * a * 25 / 1e6, pairs, pairs / (ops / NMS_IOU_OPS),
+             pairs * NMS_IOU_OPS / PEAK_F32_FLOPS * 1e3, NMS_IOU_OPS),
+          flush=True)
+    row = dict(name="greedy_nms", route="cuda",
+               source="mxnet_tpu_torch/csrc/nms.cu",
+               replaces="mxnet_tpu/ops/contrib.py:243", launches=launches,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None, mask_ms=mask_ms,
+               scan_ms=scan_ms, workspace_mb=work_mb, mask_pairs=pairs,
+               proposal_a6000=dict(ms=prop_ms, plain_ms=prop_plain_ms))
+    return row
 
 
 def _classic_module(network, kw):

@@ -10,10 +10,17 @@ that loop would launch ~10 kernels per box, ~70,000 a batch at SSD300's
 
 * :func:`greedy_nms_plain` — the JAX loop transcribed, batched over
   images.  Taken for CPU tensors.
-* :func:`greedy_nms_cuda` — the wrapper of K7 (``csrc/nms.cu``; the
-  source says what bounds it and how the design meets that).  Taken for
-  CUDA tensors: it launches the kernel or raises.  ``.launches`` counts
-  its launches (:mod:`.launches`), one a call for the whole batch.
+* :func:`greedy_nms_cuda` — the wrapper of K7 (``csrc/nms.cu``: a mask
+  pass, a gather of the boxes into visit order and then 64-bit
+  suppression words over (image, row chunk, column chunks) blocks, and a
+  scan of one block an image; the source says what bounds it).  Taken
+  for CUDA tensors: it launches the kernels or raises.  ``.launches``
+  counts its calls (:mod:`.launches`), one a call of the kernels for the
+  whole batch.  The workspace (:func:`workspace_bytes`) comes from
+  torch's caching allocator; any box count whose workspace fits on the
+  card is taken.
+* :func:`launch_parts` — the mask pass or the scan alone, uncounted, for
+  timing.
 * :func:`greedy_nms` — the entry, routed by device.
 
 The IoU is rounded in ``_iou_matrix``'s order in both versions (the
@@ -31,7 +38,11 @@ from ..base import MXNetError
 from . import launches
 
 __all__ = ["iou_matrix", "greedy_nms", "greedy_nms_plain",
-           "greedy_nms_cuda"]
+           "greedy_nms_cuda", "launch_parts", "workspace_bytes", "MASK",
+           "SCAN"]
+
+#: :func:`launch_parts`'s parts: the mask pass, the scan
+MASK, SCAN = 1, 2
 
 
 def iou_matrix(a, b):
@@ -76,18 +87,12 @@ def greedy_nms_plain(boxes, cls_id, order, nms_thresh, force):
 def _fn(lib):
     fn = lib.mxtt_nms
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_size_t]
+                       + [ctypes.c_int] * 2
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def _max_boxes(lib):
-    fn = lib.mxtt_nms_max_boxes
-    if fn.argtypes is None:
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-    return fn()
 
 
 def _check_inputs(boxes, cls_id, order):
@@ -109,11 +114,33 @@ def _check_inputs(boxes, cls_id, order):
     return B, A
 
 
-def greedy_nms_cuda(boxes, cls_id, order, nms_thresh, force):
-    """Launch kernel K7 on the boxes' card, on the current stream: one
-    block per image.  Returns the keep mask ``(B, A)`` bool; raises on
-    inputs the kernel does not take."""
+def workspace_bytes(B, A):
+    """Bytes of K7's workspace for ``B`` images of ``A`` boxes (``Work``
+    in ``csrc/nms.cu``: the boxes in visit order, each image's triangle of
+    mask words, the valid words); builds the kernels if needed."""
+    fn = _kernels.load("nms").mxtt_nms_workspace_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_size_t
+    return fn(B, A)
+
+
+def launch_parts(boxes, cls_id, order, nms_thresh, force, parts=MASK | SCAN,
+                 work=None):
+    """Launches the kernels of K7 that ``parts`` names (:data:`MASK`, the
+    mask pass; :data:`SCAN`, the scan over the mask a mask pass left in
+    ``work``; both by default) on the boxes' card, on the current stream,
+    and counts nothing: :func:`greedy_nms_cuda` is the entry.  Returns the
+    keep flags ``(B, A)`` uint8 (written by the scan) and the workspace
+    (an int64 tensor; pass it back with ``work`` to time one part alone).
+    Raises on inputs the kernels do not take and on a workspace larger
+    than the card."""
     B, A = _check_inputs(boxes, cls_id, order)
+    if not nms_thresh > 0:
+        # a pair that does not intersect is decided as below the
+        # threshold without the division: exact only above an IoU of 0
+        raise MXNetError("K7 takes an IoU threshold > 0, got %r"
+                         % (nms_thresh,))
     if boxes.device.type != "cuda":
         raise MXNetError("K7 takes CUDA tensors, got %s" % boxes.device)
     boxes = boxes.contiguous()
@@ -121,19 +148,35 @@ def greedy_nms_cuda(boxes, cls_id, order, nms_thresh, force):
     order = order.to(torch.int32).contiguous()
     if boxes.data_ptr() % 16:
         boxes = boxes.clone()
+    need = workspace_bytes(B, A)
+    if work is None:
+        total = torch.cuda.get_device_properties(boxes.device).total_memory
+        if need > total:
+            raise MXNetError("K7 needs a workspace of %.2f GB for %d images "
+                             "of %d boxes, more than the card's %.2f GB"
+                             % (need / 1e9, B, A, total / 1e9))
+        work = torch.empty(need // 8, dtype=torch.int64, device=boxes.device)
+    elif work.device != boxes.device or work.numel() * 8 < need:
+        raise MXNetError("K7: the workspace must hold %d bytes on %s"
+                         % (need, boxes.device))
     keep = torch.empty((B, A), dtype=torch.uint8, device=boxes.device)
     lib = _kernels.load("nms")
     with torch.cuda.device(boxes.device):
-        most = _max_boxes(lib)
-        if A > most:
-            raise MXNetError("K7 takes at most %d boxes an image, got %d"
-                             % (most, A))
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = _fn(lib)(boxes.data_ptr(), cls_id.data_ptr(), order.data_ptr(),
-                       keep.data_ptr(), B, A, float(nms_thresh),
-                       int(bool(force)), stream)
+                       keep.data_ptr(), work.data_ptr(), work.numel() * 8,
+                       B, A, float(nms_thresh), int(bool(force)), int(parts),
+                       stream)
     if err != 0:
         raise MXNetError("NMS kernel launch failed: CUDA error %d" % err)
+    return keep, work
+
+
+def greedy_nms_cuda(boxes, cls_id, order, nms_thresh, force):
+    """Launch kernel K7 on the boxes' card, on the current stream: the
+    mask pass and the scan.  Returns the keep mask ``(B, A)`` bool;
+    raises on inputs the kernel does not take."""
+    keep, _work = launch_parts(boxes, cls_id, order, nms_thresh, force)
     launches.count(greedy_nms_cuda)
     return keep.bool()
 

@@ -1967,6 +1967,122 @@ def test_k7_on_ties(cuda_device, a, force):
     assert torch.equal(keep, want) and torch.equal(keep, again)
 
 
+def _k7_equal(boxes, cls, order, force, thresh=0.5):
+    """K7 (one counted call of its two kernels) against the plain loop,
+    bit for bit; returns the keep mask."""
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    before = nms_kernel.greedy_nms_cuda.launches
+    keep = nms_kernel.greedy_nms_cuda(boxes, cls, order, thresh, force)
+    torch.cuda.synchronize()
+    assert nms_kernel.greedy_nms_cuda.launches == before + 1
+    want = nms_kernel.greedy_nms_plain(boxes, cls, order, thresh, force)
+    assert torch.equal(keep, want)
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("force", [True, False])
+def test_k7_at_chunk_edges(cuda_device, a, force):
+    """Box counts around K7's 64-position mask words: boxes on a 1/8 grid
+    (IoUs exactly at the threshold, tied scores), a box repeated exactly
+    (IoU 1), a fifth invalid at the tail."""
+    boxes, cls, order = _nms_case(4, a, a, classes=3, invalid=0.2,
+                                  quantized=True)
+    boxes[:, 1] = boxes[:, 0]
+    cls[:, 1] = cls[:, 0]
+    keep = _k7_equal(boxes, cls, order, force)
+    assert not keep.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", [True, False])
+def test_k7_on_invalid_images_and_prefixes(cuda_device, force):
+    """An image with no valid box, and images whose valid prefix of the
+    visit order ends inside a chunk, inside a scan tile (512 positions)
+    and on a chunk edge, 700 boxes crossing a tile edge; plus boxes
+    invalid amid the valid ones."""
+    boxes, cls, order = _nms_case(5, 700, 3, classes=4, invalid=0.0,
+                                  quantized=True)
+    pos = torch.empty_like(order).scatter_(
+        1, order, torch.arange(700, device=order.device).expand(5, 700))
+    cls[0] = -1.0
+    for b, n in ((1, 100), (2, 300), (3, 448)):
+        cls[b][pos[b] >= n] = -1.0
+    cls[4][pos[4] % 7 == 3] = -1.0
+    keep = _k7_equal(boxes, cls, order, force)
+    assert keep[0].all()
+    for b, n in ((1, 100), (2, 300), (3, 448)):
+        assert keep[b][pos[b] >= n].all() and not keep[b].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [6000, 12000])
+def test_k7_at_proposal_sizes(cuda_device, a):
+    """rcnn's ``_contrib_Proposal`` calls greedy NMS over its pre-NMS top
+    6000 (inference) or 12000 (training) boxes: one image, ``force``, the
+    visit order ``arange(A)``."""
+    boxes, cls, _order = _nms_case(1, a, a, classes=1, invalid=0.0)
+    order = torch.arange(a, device=boxes.device)[None]
+    keep = _k7_equal(boxes, cls, order, True, thresh=0.7)
+    assert 0 < int(keep.sum()) < a
+
+
+@pytest.mark.cuda
+def test_k7_above_the_old_shared_memory_cap(cuda_device):
+    """26,000 boxes an image, above the 9 bytes a box of shared memory the
+    one-block-an-image kernel needed (~25,800 on an H100): taken, equal
+    to the plain loop, and two launches give equal masks."""
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    boxes, cls, order = _nms_case(1, 26000, 4, classes=20, invalid=0.05)
+    keep = _k7_equal(boxes, cls, order, False)
+    again = nms_kernel.greedy_nms_cuda(boxes, cls, order, 0.5, False)
+    assert torch.equal(keep, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("force", [True, False])
+def test_k7_on_degenerate_boxes(cuda_device, force):
+    """Boxes of zero area, inverted on one side or both, and of an area
+    past float32's range, amid ordinary ones: the tiles that hold them
+    take the mask pass's division on every pair, and K7 keeps what the
+    plain loop keeps."""
+    boxes, cls, order = _nms_case(2, 300, 9, classes=3, invalid=0.1,
+                                  quantized=True)
+    rs = np.random.RandomState(9)
+    for b in range(2):
+        pick = torch.from_numpy(rs.choice(300, 40, replace=False))
+        kind = pick % 4
+        x = boxes[b, pick]
+        x[kind == 0, 2] = x[kind == 0, 0]                      # zero width
+        x[kind == 1, 2] = x[kind == 1, 0] - 0.125              # one side
+        x[kind == 2] = x[kind == 2][:, [2, 3, 0, 1]]           # both sides
+        x[kind == 3] = x[kind == 3] * 1e30                     # area inf
+        boxes[b, pick] = x
+    _k7_equal(boxes, cls, order, force)
+
+
+@pytest.mark.cuda
+def test_k7_parts_and_workspace(cuda_device):
+    """The mask pass and the scan launched apart, over one workspace,
+    give the counted call's mask; neither counts a launch."""
+    from mxnet_tpu_torch.ops import nms_kernel
+
+    boxes, cls, order = _nms_case(3, 1000, 5, classes=5)
+    want = nms_kernel.greedy_nms_cuda(boxes, cls, order, 0.45, False)
+    before = nms_kernel.greedy_nms_cuda.launches
+    _keep, work = nms_kernel.launch_parts(boxes, cls, order, 0.45, False,
+                                          parts=nms_kernel.MASK)
+    assert work.numel() * 8 == nms_kernel.workspace_bytes(3, 1000)
+    keep, _work = nms_kernel.launch_parts(boxes, cls, order, 0.45, False,
+                                          parts=nms_kernel.SCAN, work=work)
+    torch.cuda.synchronize()
+    assert torch.equal(keep.bool(), want)
+    assert nms_kernel.greedy_nms_cuda.launches == before
+
+
 def _ssd_run(lr, fuse, monkeypatch, steps=3):
     """``steps`` SSD steps (3 classes, 96x96, b2) on the card from one
     seed: (outputs a step, parameters after each step, replays)."""

@@ -288,6 +288,163 @@ def test_greedy_nms_plain_matches_jax(monkeypatch, regime, force):
     assert not got.all()
 
 
+# -- the two passes of K7 (csrc/nms.cu), modelled on the CPU ----------------
+CHUNK, TILE = 64, 8
+
+
+def _mask_words(boxes, cls_id, order, thresh, force):
+    """K7's mask pass on one image: ``(A, n)`` 64-bit words (n chunks of
+    the visit order) whose bit t of word c says that the box at visit
+    position i, if kept, suppresses position ``64c + t``; and the chunks'
+    valid words.  Only words at or right of a row's own chunk are read."""
+    A = cls_id.shape[0]
+    n = -(-A // CHUNK)
+    b = boxes[order.long()]
+    c = cls_id[order.long()]
+    valid = c >= 0
+    nan = torch.full_like(c, float("nan"))
+    key = torch.where(valid, torch.zeros_like(c) if force else c, nan)
+    w = (torch.minimum(b[:, None, 2], b[None, :, 2])
+         - torch.maximum(b[:, None, 0], b[None, :, 0]))
+    h = (torch.minimum(b[:, None, 3], b[None, :, 3])
+         - torch.maximum(b[:, None, 1], b[None, :, 1]))
+    area = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    # the kernel's shortcut: no positive width or height, no division
+    touch = (w > 0) & (h > 0)
+    inter = torch.where(touch, w * h, torch.zeros_like(w))
+    union = area[:, None] + area[None, :] - inter
+    iou = torch.where(union > 0, inter / union, torch.zeros_like(union))
+    pos = torch.arange(A)
+    hit = (touch & (key[:, None] == key[None, :]) & (iou >= thresh)
+           & (pos[None, :] > pos[:, None]) & valid[:, None])
+    pad = n * CHUNK - A
+    bits = torch.nn.functional.pad(hit, (0, pad)).view(A, n, CHUNK).long()
+    words = (bits << torch.arange(CHUNK)).sum(-1)  # distinct bits: an OR
+    vbits = torch.nn.functional.pad(valid, (0, pad)).view(n, CHUNK).long()
+    vwords = (vbits << torch.arange(CHUNK)).sum(-1)
+    u = np.uint64
+    return (words.numpy().view(u).astype(object),
+            [int(v) for v in vwords.numpy().view(u)])
+
+
+def _two_pass_nms(boxes, cls_id, order, thresh, force):
+    """A torch-CPU model of K7 on one image: the mask words, then the
+    scan: TILE chunks a step, each chunk's kept set the fixed point of
+    "candidates no kept row of the chunk suppresses", iterated from the
+    candidates (as the kernel's warp does), its rows' words for the
+    tile's later chunks ORed in, then the tile's kept rows' words right
+    of the tile ORed into "removed".  Returns keep (A,)."""
+    A = cls_id.shape[0]
+    words, valid = _mask_words(boxes, cls_id, order, thresh, force)
+    nvc = max([c + 1 for c, v in enumerate(valid) if v], default=0)
+    removed = [0] * len(valid)
+    keep_pos = np.ones(A, bool)
+
+    def rows_or(rows, c):
+        out = 0
+        for row in rows:
+            out |= int(words[row, c])
+        return out
+
+    for c0 in range(0, nvc, TILE):
+        nt = min(TILE, nvc - c0)
+        rem = removed[c0:c0 + nt]
+        kept_rows = []
+        for j in range(nt):
+            v = valid[c0 + j]
+            cand = v & ~rem[j]
+            kept, rounds = cand, 0
+            while True:
+                rows = [(c0 + j) * CHUNK + t for t in range(CHUNK)
+                        if (kept >> t) & 1]
+                nxt = cand & ~rows_or(rows, c0 + j)
+                rounds += 1
+                if nxt == kept:
+                    break
+                kept = nxt
+            assert rounds <= CHUNK + 1
+            for jj in range(j + 1, nt):
+                rem[jj] |= rows_or(rows, c0 + jj)
+            kept_rows += rows
+            for t in range(CHUNK):
+                p = (c0 + j) * CHUNK + t
+                if p < A:
+                    keep_pos[p] = bool(((kept | ~v) >> t) & 1)
+        for c in range(c0 + nt, nvc):
+            removed[c] |= rows_or(kept_rows, c)
+    keep = np.ones(A, bool)
+    keep[order.numpy()] = keep_pos
+    return keep
+
+
+def _nms_image_cases(a, seed, quantized=True):
+    """Three images of ``a`` boxes in three classes: ties (boxes on a 1/8
+    grid, scores in tenths), a box repeated exactly (IoU 1), invalid boxes
+    scored -inf at the tail of the visit order; the second image's valid
+    prefix ends mid-chunk, the third has no valid box."""
+    rs = np.random.RandomState(seed)
+    xy = rs.rand(3, a, 2) * 0.8
+    wh = rs.rand(3, a, 2) * 0.3 + 0.02
+    if quantized:
+        xy, wh = np.round(xy * 8) / 8, np.round(wh * 8) / 8 + 0.125
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    cls = rs.randint(0, 3, (3, a)).astype(np.float32)
+    cls[0, rs.rand(a) < 0.2] = -1.0
+    if a > 1:
+        boxes[:, 1] = boxes[:, 0]
+        cls[:, 1] = cls[:, 0]
+    score = rs.rand(3, a).astype(np.float32)
+    if quantized:
+        score = np.round(score, 1).astype(np.float32)
+    score[1, :] = np.linspace(1, 0.5, a)
+    cls[1, (a * 2) // 3:] = -1.0
+    cls[2, :] = -1.0
+    score[cls < 0] = -np.inf
+    order = np.argsort(-score, axis=1, kind="stable").astype(np.int32)
+    return boxes, cls, order
+
+
+def _two_pass_against_jax(boxes, cls, order, force):
+    got = [_two_pass_nms(torch.from_numpy(boxes[b]), torch.from_numpy(cls[b]),
+                         torch.from_numpy(order[b]), 0.5, force)
+           for b in range(len(cls))]
+    with jax.disable_jit():
+        for b in range(len(cls)):
+            want = np.asarray(jcontrib._greedy_nms(
+                jnp.asarray(boxes[b]), jnp.asarray(cls[b]),
+                jnp.asarray(order[b]), 0.5, force))
+            np.testing.assert_array_equal(got[b], want)
+    return got
+
+
+@pytest.mark.parametrize("a,regime", [(63, "matrix"), (64, "matrix"),
+                                      (65, "matrix"), (129, "matrix"),
+                                      (520, "streaming")])
+@pytest.mark.parametrize("force", [False, True])
+def test_two_pass_nms_matches_jax(monkeypatch, a, regime, force):
+    """K7's scheme (mask words, then the tiled scan with its fixed-point
+    resolve of each chunk) against ``_greedy_nms`` bit for bit: across chunk and tile
+    edges, ties, IoU 1, invalid tails, an image with no valid box; in the
+    JAX function's matrix regime and in its streaming regime (by a
+    lowered ``NMS_MATRIX_MAX_BOXES``)."""
+    if regime == "streaming":
+        monkeypatch.setattr(jcontrib, "NMS_MATRIX_MAX_BOXES", 8)
+    boxes, cls, order = _nms_image_cases(a, a)
+    got = _two_pass_against_jax(boxes, cls, order, force)
+    suppressed = [(~k & (c >= 0)).sum() for k, c in zip(got, cls)]
+    assert suppressed[0] > 0 and suppressed[1] > 0 and got[2].all()
+
+
+def test_two_pass_nms_matches_jax_above_its_matrix_regime():
+    """The same above ``NMS_MATRIX_MAX_BOXES`` (2100 boxes, the JAX
+    function streaming its IoU rows by itself): one image, a fifth of it
+    invalid at the tail, per class."""
+    boxes, cls, order = _nms_image_cases(2100, 7, quantized=False)
+    assert 2100 > jcontrib.NMS_MATRIX_MAX_BOXES
+    got = _two_pass_against_jax(boxes[:1], cls[:1], order[:1], False)
+    assert 0 < (~got[0] & (cls[0] >= 0)).sum() < (cls[0] >= 0).sum()
+
+
 def test_greedy_nms_routes_by_device():
     """CPU tensors take the plain version; K7 counts no launch."""
     before = nms_kernel.greedy_nms_cuda.launches
@@ -299,6 +456,20 @@ def test_greedy_nms_routes_by_device():
     with pytest.raises(tmx.MXNetError, match="CUDA"):
         nms_kernel.greedy_nms_cuda(boxes, torch.zeros(1, 2),
                                    torch.tensor([[0, 1]]), 0.5, False)
+
+
+@pytest.mark.parametrize("thresh", [0.0, -0.5, float("nan")])
+def test_k7_refuses_a_threshold_not_above_zero(thresh):
+    """K7 decides a pair that does not intersect as below the threshold
+    without dividing, which is exact only for a threshold > 0: its wrapper
+    refuses any other on every device (the plain loop takes it)."""
+    boxes = torch.tensor([[[0, 0, 1, 1], [2, 2, 3, 3]]], dtype=torch.float32)
+    with pytest.raises(tmx.MXNetError, match="threshold > 0"):
+        nms_kernel.greedy_nms_cuda(boxes, torch.zeros(1, 2),
+                                   torch.tensor([[0, 1]]), thresh, False)
+    keep = nms_kernel.greedy_nms(boxes, torch.zeros(1, 2),
+                                 torch.tensor([[0, 1]]), thresh, False)
+    assert keep.shape == (1, 2)
 
 
 def _params_of(net):
