@@ -298,12 +298,36 @@
    card: equal class ids, scores and boxes within 1e-6; timed beside the
    plain version and the bound.  18c: VGG-16 with and without
    ``batch_norm``, GoogLeNet (256x256), Inception-BN and AlexNet, b32
-   (224x224), 3 steps each through ``Module.fit``: step ms, peak memory,
-   one K1 and one K2 launch per BatchNorm a step (13 and 69), every K1/K2
-   call of one more step held on its own tensors; one Inception-BN b4
-   step against the CPU, all updates within 3x the perturbed distance.
-19. Prints the kernel table (K1-K6, K3b and K7) as one JSON line, the
-   card's name and power limit, then the result line.
+   (224x224), and Inception-ResNet-v2 (299x299, the paper's repeats
+   10/20/9), 3 steps each through ``Module.fit``: step ms, peak memory,
+   one K1 and one K2 launch per BatchNorm a step (13, 69 and 244), every
+   K1/K2 call of one more step held on its own tensors; one Inception-BN
+   b4 step against the CPU, all updates within 3x the perturbed distance.
+19. Faster R-CNN with VGG16 (``models.rcnn``; the paper's single-scale
+   setting: one 600x1000 image a batch, 21 classes, 9 anchors, a 37x62
+   conv5 map, pre/post-NMS top-N 12000/2000 in training and 6000/300 at
+   inference), f32, seeded data and weights, every line with the card's
+   name and power limit.  19a: ``get_symbol_rpn`` through ``Module.fit``
+   for 4 steps (``example/rcnn/train.py``'s SGD, lr 0.001, momentum 0.9;
+   its brightness labels, a tenth of the anchors -1): step ms and the
+   anchor cross-entropy of each step.  19b: ``get_symbol_train`` through
+   ``Module.fit`` for 4 steps, classic and captured
+   (``MXNET_FUSE_TRAIN_STEP=1``): step ms, one K7, K8 and K8b launch a
+   step, no plain NMS or ROI pooling on the card, peak memory, a profile
+   of one classic step by group (cuDNN convolutions, gemm, K7, K8, K8b,
+   ...).  19c: 19b's weights through ``get_symbol_test`` and
+   ``Module.forward(is_train=False)``, two passes: forward ms, one K7 and
+   one K8 launch a pass, well-formed outputs.  19d: K7 against the plain
+   loop on Proposal's own inputs of 19b and 19c (keep masks equal),
+   timed; K8's maxima and counts bit for bit and K8b within 1e-5
+   of the largest |dx| (and bit for bit across two launches) on 19b's
+   own conv5_3 map, ROIs and pool5 gradient, timed beside the plain
+   versions and the bound; K8 on 19c's 300 ROIs; one RPN step on the card
+   against the CPU within 3x the f32 floor of each parameter (inputs
+   perturbed by 1e-6, and the CPU step summed in another order, on one
+   thread, as one more witness of the floor).
+20. Prints the kernel table (K1-K6, K3b, K7, K8 and K8b) as one JSON line,
+   the card's name and power limit, then the result line.
 
 Exits non-zero, printing no result, without a card or outside the repo.
 """
@@ -692,26 +716,33 @@ def serving_phase(mx, att, dev, seed):
 
 # -- LM training through K3 and K3b (phases 6b and 6c) -----------------------
 @contextlib.contextmanager
-def attention_plain_refused(att):
-    """Within the block the plain attention versions raise on CUDA
-    tensors: the card's path must take K3 and K3b."""
-    names = ("flash_attention_plain", "flash_attention_bwd_plain")
-    saved = {k: getattr(att, k) for k in names}
+def plain_refused(*targets):
+    """Within the block each plain version ``(module, name)`` of
+    ``targets`` raises when a CUDA tensor is among its positional
+    arguments: the card's path must launch the kernels."""
+    saved = [(m, k, getattr(m, k)) for m, k in targets]
 
-    def refuse(name):
-        def plain(q, *args, **kw):
-            if q.is_cuda:
+    def refuse(name, fn):
+        def plain(*args, **kw):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
                 raise RuntimeError("%s called on the card" % name)
-            return saved[name](q, *args, **kw)
+            return fn(*args, **kw)
         return plain
 
-    for k in names:
-        setattr(att, k, refuse(k))
+    for m, k, fn in saved:
+        setattr(m, k, refuse(k, fn))
     try:
         yield
     finally:
-        for k, v in saved.items():
-            setattr(att, k, v)
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+
+
+def attention_plain_refused(att):
+    """The plain attention versions refused on the card: the path must
+    take K3 and K3b."""
+    return plain_refused((att, "flash_attention_plain"),
+                         (att, "flash_attention_bwd_plain"))
 
 
 @contextlib.contextmanager
@@ -1554,9 +1585,10 @@ def _is_bn_kernel(name):
     return "bn_fwd_" in name or "bn_bwd_" in name
 
 
-def profile_step(mod, batch, steady_ms):
-    """One more step under torch.profiler: device time by kernel.  A step
-    that fails fails the phase; a profiler that records no device time is
+def profile_step(mod, batch, steady_ms, groups=()):
+    """One more step under torch.profiler: device time by kernel (by
+    :func:`print_kernel_groups`, with ``groups`` first).  A step that
+    fails fails the phase; a profiler that records no device time is
     reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1585,15 +1617,15 @@ def profile_step(mod, batch, steady_ms):
           "device time)" % (wall, steady_ms, total,
                             100 * max(0.0, 1 - total / wall), bn,
                             100 * bn / total), flush=True)
-    print_kernel_groups(kernels, total)
+    print_kernel_groups(kernels, total, groups=groups)
     return max(0.0, 1 - total / wall)
 
 
-def print_kernel_groups(kernels, total, label="profile"):
-    """Prints the device time of profiled ``kernels`` by group (cuDNN
+def print_kernel_groups(kernels, total, label="profile", groups=()):
+    """Prints the device time of profiled ``kernels`` by group (``groups``,
+    ``(name, test of the lowercase kernel name)`` pairs, then cuDNN
     convolutions, K1/K2, ...) and the twelve longest."""
-    groups = {}
-    rules = (("bn_* (K1/K2)", _is_bn_kernel),
+    rules = tuple(groups) + (("bn_* (K1/K2)", _is_bn_kernel),
              ("convolution (cuDNN)", lambda k: any(w in k for w in (
                  "conv", "cudnn", "implicit_gemm", "wgrad", "dgrad",
                  "fprop", "winograd", "fft", "gemm_cf32"))),
@@ -1604,6 +1636,7 @@ def print_kernel_groups(kernels, total, label="profile"):
              ("concat (torch.cat)", lambda k: "catarray" in k),
              ("gemm", lambda k: "gemm" in k),
              ("add", lambda k: "add" in k))
+    groups = {}
     for e in kernels:
         k = e.key.lower()
         name = next((n for n, test in rules if test(k)), "other")
@@ -1643,26 +1676,10 @@ def environment(values):
                 os.environ[k] = v
 
 
-@contextlib.contextmanager
 def bn_plain_refused(bnk):
-    """Within the block the plain BatchNorm versions raise on CUDA
-    tensors: the card's path must take K1 and K2."""
-    saved = {k: getattr(bnk, k) for k in ("bn_fwd_plain", "bn_bwd_plain")}
-
-    def refuse(name):
-        def plain(x, *args, **kw):
-            if x.is_cuda:
-                raise RuntimeError("%s called on the card" % name)
-            return saved[name](x, *args, **kw)
-        return plain
-
-    for k in saved:
-        setattr(bnk, k, refuse(k))
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            setattr(bnk, k, v)
+    """The plain BatchNorm versions refused on the card: the path must
+    take K1 and K2."""
+    return plain_refused((bnk, "bn_fwd_plain"), (bnk, "bn_bwd_plain"))
 
 
 def _bn_kernel_runs(prof):
@@ -2328,7 +2345,7 @@ def step_updates(mx, make_module, ctx, x, y, seed):
 def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
                  net="ResNet-50", image=(3, 224, 224), pixels=(0, 255),
                  step=step_updates, data=None, perturb=1e-7,
-                 bound="tensor"):
+                 bound="tensor", reorder=False):
     """One fit step of the same network (``make_module``'s, named ``net``)
     on the card and on the CPU, on a
     ``PARITY_BATCH`` of ``image``-shaped inputs uniform in ``pixels``
@@ -2336,7 +2353,12 @@ def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
     :func:`step_updates`; SSD's takes its detection labels); the floor's
     inputs are perturbed by ``perturb`` relative.  With ``bound="global"``
     the distance over all updates is held within 3x the largest perturbed
-    one, and the per-tensor ratios are printed, not bounded.
+    one, and the per-tensor ratios are printed, not bounded.  With
+    ``reorder`` the floor also takes the distance of the CPU step taken
+    on one thread, which sums the same f32 terms in another order: a sum
+    whose terms cancel (a bias gradient over thousands of positions)
+    rounds by ~1 ulp of the sum of its terms' magnitudes whatever the
+    input, so no input perturbation measures its floor.
 
     The first step of a randomly initialized ResNet-50 is ill-conditioned:
     on the CPU alone, an input perturbed by 1e-7 relative moves the
@@ -2368,6 +2390,14 @@ def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
     cu, caux, cvals = step(mx, make_module, mx.cpu(), x, y, seed)
     cs = time.perf_counter() - t
     pus = [step(mx, make_module, mx.cpu(), xp, y, seed)[0] for xp in xps]
+    witnesses = list(pus)
+    if reorder:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            witnesses.append(step(mx, make_module, mx.cpu(), x, y, seed)[0])
+        finally:
+            torch.set_num_threads(threads)
 
     names = sorted(cu)
     norm = math.sqrt(sum(float(np.sum(cu[k] ** 2)) for k in names))
@@ -2379,8 +2409,11 @@ def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
     # or f32's epsilon of the whole update's norm
     ulp = np.array([float(np.linalg.norm(np.spacing(cvals[k])))
                     for k in names])
-    floor = np.maximum(np.max([dists(p, cu) for p in pus], axis=0),
-                       np.maximum(ulp, np.finfo(np.float32).eps * norm))
+    least = np.maximum(ulp, np.finfo(np.float32).eps * norm)
+    perturbed = np.maximum(np.max([dists(p, cu) for p in pus], axis=0),
+                           least)
+    floor = np.maximum(np.max([dists(p, cu) for p in witnesses], axis=0),
+                       least)
     card, plain_bn = dists(gu, cu), dists(gu, qu)
     ratio = card / np.maximum(floor, 1e-30)
     worst = int(np.argmax(ratio))
@@ -2396,16 +2429,26 @@ def parity_phase(mx, bnk, seed, make_module=_resnet50_module,
     print("parity one fit step b%d %s, card (%.2f s) vs CPU plain "
           "versions (%.2f s): updates differ by %.3g of their norm, the CPU "
           "on %d inputs perturbed by %.0e relative by %s; per tensor, card distance over the "
-          "largest perturbed distance: median %.3g, worst %.3g at %s "
+          "largest witness distance: median %.3g, worst %.3g at %s "
           "(limit 3), worst gamma/beta %.3g at %s; witness with the plain "
           "BatchNorm on the card: it differs from the card's kernel step by "
           "%.3g of the norm, worst %.3g of the floor at %s (not bounded); "
           "moving-stat error %.3g of its limit"
-          % (PARITY_BATCH, net, gs, cs, glob(card), PARITY_PERTURBATIONS, perturb,
+          % (x.shape[0], net, gs, cs, glob(card), PARITY_PERTURBATIONS, perturb,
              ["%.3g" % glob(dists(p, cu)) for p in pus], np.median(ratio),
              ratio[worst], names[worst], ratio[gbw], names[gbw],
              glob(plain_bn), plain_bn[wq] / max(floor[wq], 1e-30),
              names[wq], aux_err), flush=True)
+    if reorder:
+        alone = card / np.maximum(perturbed, 1e-30)
+        wp = int(np.argmax(alone))
+        print("parity %s: the CPU step on one thread differs from it by "
+              "%.3g of the norm; against the perturbed floor alone the "
+              "worst tensor stands at %.3g (%s: card distance %.3g, one "
+              "thread %.3g, perturbed %.3g)"
+              % (net, glob(dists(witnesses[-1], cu)), alone[wp], names[wp],
+                 card[wp], dists(witnesses[-1], cu)[wp], perturbed[wp]),
+              flush=True)
     if bound == "global":
         limit = max(glob(dists(p, cu)) for p in pus)
         if not glob(card) <= 3 * limit:
@@ -2760,27 +2803,11 @@ def lstm_wide_check(rk, dev, seed, T=8, n=8, h=1024):
                          rk.lstm_fwd_plan(n, h, dev)), flush=True)
 
 
-@contextlib.contextmanager
 def lstm_plain_refused(rk):
-    """Within the block a plain version called on a CUDA tensor raises:
-    the main path must launch the kernels."""
-    names = ("lstm_infer_plain", "lstm_fwd_plain", "lstm_bwd_plain")
-    saved = {k: getattr(rk, k) for k in names}
-
-    def refuse(name):
-        def plain(*args):
-            if any(a.is_cuda for a in args):
-                raise RuntimeError("%s called on the card" % name)
-            return saved[name](*args)
-        return plain
-
-    for k in names:
-        setattr(rk, k, refuse(k))
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            setattr(rk, k, v)
+    """The plain LSTM versions refused on the card: the path must take
+    K4-K6."""
+    return plain_refused(*((rk, k) for k in (
+        "lstm_infer_plain", "lstm_fwd_plain", "lstm_bwd_plain")))
 
 
 def _lstm_module(mx, lstm_lm, ctx=None, key=max(LSTM_BUCKETS), cell=None,
@@ -5161,8 +5188,13 @@ NMS_IOU_OPS = 19
 #: fixed 7x7 average pool needs 256 (at 224 its last map is 6x6)
 CLASSIC_NETS = (("vgg", {}, 224), ("vgg", {"batch_norm": True}, 224),
                 ("googlenet", {}, 256), ("inception-bn", {}, 224),
-                ("alexnet", {}, 224))
+                ("alexnet", {}, 224), ("inception-resnet-v2", {}, 299))
 CLASSIC_BATCH, CLASSIC_STEPS = 32, 3
+#: the classic networks whose step is also profiled, and the profile's
+#: groups beside the default ones (lowercase kernel names)
+CLASSIC_PROFILED = ("inception-resnet-v2",)
+CLASSIC_GROUPS = (("scale (_mul_scalar)", lambda k: "mul" in k and not any(
+    w in k for w in ("multi_tensor", "gemm", "conv"))),)
 
 
 def _ssd_module(mx, ssd, ctx=None):
@@ -5522,14 +5554,16 @@ def _classic_module(network, kw):
 
 def classic_phase(mx, bnk, seed, smi):
     """Phase 18c: ``Module.fit`` of VGG-16 (with and without
-    ``batch_norm``), GoogLeNet, Inception-BN and AlexNet (1000 classes,
-    f32, b32) on the card for ``CLASSIC_STEPS`` batches of uniform data
+    ``batch_norm``), GoogLeNet, Inception-BN, AlexNet and
+    Inception-ResNet-v2 (1000 classes, f32, b32) on the card for
+    ``CLASSIC_STEPS`` batches of uniform data
     from ``--seed``, SGD lr 0.01 momentum 0.9 wd 1e-4, Xavier (gaussian,
     in, 2).  The BatchNorm networks launch K1 and K2 once per BatchNorm a
     step, no plain BatchNorm on the card, and in one more step every K1
     and K2 call is held against its references on its own tensors
     (:func:`checked_step`); every network ends finite.  Prints step ms,
-    images/s and peak memory.  Then one Inception-BN b4 step on the card
+    images/s and peak memory, and for ``CLASSIC_PROFILED`` one more step
+    under the profiler (:func:`profile_step`).  Then one Inception-BN b4 step on the card
     against the CPU (:func:`parity_phase`), the distance over all updates
     within 3x the largest of three perturbed CPU steps: per tensor, its
     tail (7x7 maps at b4, 3x3 max pools of stride 1) sits at near-ties,
@@ -5586,6 +5620,9 @@ def classic_phase(mx, bnk, seed, smi):
         if n_bn:
             it.reset()
             checked_step(mod, next(it), bnk, n_bn, label)
+        if network in CLASSIC_PROFILED:
+            it.reset()
+            profile_step(mod, next(it), steady, groups=CLASSIC_GROUPS)
         del mod, it
         torch.cuda.empty_cache()
     parity_phase(mx, bnk, seed, _classic_module("inception-bn", {}),
@@ -5612,6 +5649,609 @@ def detection_phase(mx, bnk, seed, smi):
           % (time.perf_counter() - t0, t1 - t0, t2 - t1,
              time.perf_counter() - t2), flush=True)
     return k7, bn
+
+
+# -- Faster R-CNN (phase 19) --------------------------------------------------
+#: Faster R-CNN's single-scale setting (Ren et al., NIPS 2015, sections
+#: 3.1.3 and 4): one image a mini-batch, its shorter side 600 (600x1000),
+#: VOC's 20 classes and the background, 9 anchors
+RCNN_IMAGE, RCNN_CLASSES, RCNN_ANCHORS = (600, 1000), 21, 9
+RCNN_STEPS = 4
+#: example/rcnn/train.py's SGD
+RCNN_OPT = {"learning_rate": 0.001, "momentum": 0.9}
+#: the pre- and post-NMS top-N of training and inference (rcnn.py:56-57)
+RCNN_TRAIN_PRE, RCNN_TRAIN_ROIS = 12000, 2000
+RCNN_TEST_PRE, RCNN_TEST_ROIS = 6000, 300
+#: the share of anchors labelled -1 (ignored through use_ignore)
+RCNN_IGNORE = 0.1
+#: the relative input perturbation of the RPN step's floor, phase 18a's:
+#: VGG16 has no BatchNorm to amplify a smaller one
+RPN_PERTURB = 1e-6
+RPN_LABELS = ("label", "bbox_target", "bbox_weight")
+ROI_LABELS = ("roi_label", "roi_bbox_target", "roi_bbox_weight")
+#: ROIPooling of rcnn.py: 7x7 bins of conv5_3 at stride 16
+ROI_POOLED, ROI_SCALE = (7, 7), 1.0 / 16
+#: operations a bin's pixel costs K8 (a comparison) and K8b (a comparison
+#: and an addition)
+ROI_FWD_OPS, ROI_BWD_OPS = 1, 2
+#: the profile's groups of phase 19's kernels (lowercase names)
+RCNN_GROUPS = (("K7 (nms_*)", lambda k: "nms_" in k),
+               ("K8 (roi_pool_fwd)", lambda k: "roi_pool_fwd" in k),
+               ("K8b (roi_pool_bwd)", lambda k: "roi_pool_bwd" in k),
+               ("K8 ROI bounds", lambda k: "roi_bounds" in k))
+
+
+def rcnn_feature_map(image=RCNN_IMAGE):
+    """VGG16's conv5 map of an image: four 2x2 pools of stride 2, each
+    rounding down (37x62 at 600x1000)."""
+    h, w = image
+    for _ in range(4):
+        h, w = h // 2, w // 2
+    return h, w
+
+
+def rcnn_batches(seed, steps, build, image=RCNN_IMAGE,
+                 classes=RCNN_CLASSES):
+    """``steps`` seeded batches ``{name: array}`` of the inputs of graph
+    ``build`` ("rpn", "train" or "test"): images uniform in [0, 1); the
+    example's anchor labels (an anchor is positive where the image is
+    bright at its cell) with ``RCNN_IGNORE`` of them -1; box targets with
+    weights on the positive anchors; ROI labels in [0, classes), box
+    targets with weights on the foreground ROIs."""
+    rs = np.random.RandomState(seed)
+    h, w = image
+    fh, fw = rcnn_feature_map(image)
+    out = []
+    for _ in range(steps):
+        img = rs.rand(1, 3, h, w).astype(np.float32)
+        b = {"data": img}
+        if build != "rpn":
+            b["im_info"] = np.array([[h, w, 1.0]], np.float32)
+        if build != "test":
+            lab = (img.mean(1)[:, :16 * fh:16, :16 * fw:16] > 0.5)
+            lab = np.tile(lab.reshape(1, 1, -1).astype(np.float32),
+                          (1, RCNN_ANCHORS, 1)).reshape(1, -1)
+            lab[rs.rand(*lab.shape) < RCNN_IGNORE] = -1.0
+            b["label"] = lab
+            b["bbox_target"] = rs.normal(
+                0, 0.5, (1, 4 * RCNN_ANCHORS, fh, fw)).astype(np.float32)
+            pos = (lab.reshape(1, RCNN_ANCHORS, 1, fh, fw) > 0)
+            b["bbox_weight"] = np.broadcast_to(
+                pos, (1, RCNN_ANCHORS, 4, fh, fw)).reshape(
+                1, 4 * RCNN_ANCHORS, fh, fw).astype(np.float32)
+        if build == "train":
+            rl = rs.randint(0, classes, RCNN_TRAIN_ROIS).astype(np.float32)
+            b["roi_label"] = rl
+            b["roi_bbox_target"] = rs.normal(
+                0, 0.5, (RCNN_TRAIN_ROIS, 4 * classes)).astype(np.float32)
+            b["roi_bbox_weight"] = np.repeat(
+                (rl > 0)[:, None], 4 * classes, 1).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def rcnn_names(build):
+    """(data names, label names) of graph ``build``."""
+    data = ("data",) if build == "rpn" else ("data", "im_info")
+    labels = {"rpn": RPN_LABELS, "train": RPN_LABELS + ROI_LABELS,
+              "test": ()}[build]
+    return data, labels
+
+
+def rcnn_iter(mx, batches, build):
+    """A ``DataIter`` over ``batches`` (:func:`rcnn_batches`), as
+    ``example/rcnn`` feeds its ``DataBatch``es: the ROI inputs keep their
+    (2000, ...) shapes, which an ``NDArrayIter`` would batch."""
+    data_names, label_names = rcnn_names(build)
+
+    class BatchList(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(1)
+            self.cursor = 0
+            self.provide_data = [mx.io.DataDesc(k, batches[0][k].shape)
+                                 for k in data_names]
+            self.provide_label = [mx.io.DataDesc(k, batches[0][k].shape)
+                                  for k in label_names]
+
+        def reset(self):
+            self.cursor = 0
+
+        def next(self):
+            if self.cursor == len(batches):
+                raise StopIteration
+            b = batches[self.cursor]
+            self.cursor += 1
+            return mx.io.DataBatch(
+                data=[mx.nd.array(b[k]) for k in data_names],
+                label=[mx.nd.array(b[k]) for k in label_names], pad=0)
+
+    return BatchList()
+
+
+def anchor_ce_metric(mx):
+    """The cross-entropy of the RPN's anchor labels (output 0 against the
+    first label, the -1 anchors left out), each batch kept in ``.ces``;
+    the port's ``SoftmaxOutput`` with ``use_ignore`` trains on it."""
+    class AnchorCE(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("anchor-ce")
+            self.ces = []
+
+        def update(self, labels, preds):
+            lab = labels[0].asnumpy().reshape(-1)
+            p = preds[0].asnumpy()[0].T  # (anchors, 2)
+            keep = lab >= 0
+            ce = float(-np.log(np.maximum(
+                p[np.nonzero(keep)[0], lab[keep].astype(int)], 1e-9)).mean())
+            self.ces.append(ce)
+            self.sum_metric += ce
+            self.num_inst += 1
+
+    return AnchorCE()
+
+
+def rcnn_module(mx, rcnn, build, ctx=None):
+    net = rcnn.get_symbol_rpn() if build == "rpn" else getattr(
+        rcnn, "get_symbol_" + build)(num_classes=RCNN_CLASSES)
+    data_names, label_names = rcnn_names(build)
+    kw = {} if ctx is None else {"context": ctx}
+    return mx.mod.Module(net, data_names=data_names, label_names=label_names,
+                         **kw)
+
+
+def rcnn_fit(mx, rcnn, build, batches, seed):
+    """``Module.fit`` of graph ``build`` over ``batches`` on the card from
+    seeded Xavier weights with ``RCNN_OPT``: (module, metric, step ms by
+    CUDA events between batch ends, fit seconds, peak GB allocated and
+    reserved)."""
+    mod = rcnn_module(mx, rcnn, build)
+    metric = anchor_ce_metric(mx)
+    events, mark = _step_events()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    mx.init.seed(seed)
+    start.record()
+    t0 = time.perf_counter()
+    mod.fit(rcnn_iter(mx, batches, build), eval_metric=metric,
+            optimizer="sgd", optimizer_params=dict(RCNN_OPT),
+            initializer=mx.init.Xavier(), num_epoch=1,
+            batch_end_callback=[mark])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    _finite_params("rcnn " + build, mod)
+    if not all(np.isfinite(metric.ces)):
+        raise RuntimeError("rcnn %s: anchor cross-entropies %s"
+                           % (build, metric.ces))
+    return mod, metric, _steps_ms(start, events), fit_s, peak
+
+
+def rcnn_counts(nms, rk, reset=False):
+    """K7, K8 and K8b launches (set to 0 first when ``reset``)."""
+    wrappers = (nms.greedy_nms_cuda, rk.roi_pool_fwd_cuda,
+                rk.roi_pool_bwd_cuda)
+    if reset:
+        for w in wrappers:
+            w.launches = 0
+    return tuple(w.launches for w in wrappers)
+
+
+def rcnn_plain_refused(nms, rk):
+    """The plain NMS and ROI pooling refused on the card: the path must
+    take K7, K8 and K8b."""
+    return plain_refused((nms, "greedy_nms_plain"),
+                         (rk, "roi_pool_fwd_plain"),
+                         (rk, "roi_pool_bwd_plain"))
+
+
+def rpn_fit_phase(mx, rcnn, nms, rk, seed, smi):
+    """Phase 19a: ``get_symbol_rpn`` through ``Module.fit`` on the card
+    for ``RCNN_STEPS`` steps at 600x1000 (SGD lr 0.001, momentum 0.9, as
+    ``example/rcnn/train.py``), the example's brightness labels with a
+    tenth of the anchors ignored: step ms and the anchor cross-entropy of
+    each step, peak memory; no K7, K8 or K8b launch (the RPN graph has no
+    Proposal and no ROIPooling)."""
+    batches = rcnn_batches(seed + 19, RCNN_STEPS, "rpn")
+    rcnn_counts(nms, rk, reset=True)
+    mod, metric, step_ms, fit_s, peak = rcnn_fit(mx, rcnn, "rpn", batches,
+                                                 seed)
+    counts = rcnn_counts(nms, rk)
+    steady = float(np.median(step_ms[1:]))
+    print("rcnn RPN fit b1 %dx%d f32 on the card (%s): fit of %d steps "
+          "%.2f s (init and bind included); step ms %s (CUDA events between "
+          "batch ends; the metric's host read inside), median after the "
+          "first %.2f ms; anchor cross-entropy by step %s; peak memory "
+          "allocated %.2f GB, reserved %.2f GB; K7/K8/K8b launches %s"
+          % (RCNN_IMAGE + (smi, RCNN_STEPS, fit_s,
+                           ["%.2f" % t for t in step_ms], steady,
+                           ["%.4f" % c for c in metric.ces]) + peak
+             + (counts,)), flush=True)
+    if any(counts):
+        raise RuntimeError("the RPN fit launched K7/K8/K8b %s" % (counts,))
+    return steady
+
+
+def rcnn_step_updates(mx, make_module, ctx, x, y, seed):
+    """:func:`step_updates` for the RPN graph: one step of ``RCNN_OPT`` on
+    the image ``x`` with the labels ``y`` (a dict)."""
+    batch = dict(y, data=x)
+    mod = make_module(mx, ctx)
+    it = rcnn_iter(mx, [batch], "rpn")
+    mod.bind(it.provide_data, it.provide_label)
+    mx.init.seed(seed)
+    mod.init_params(mx.init.Xavier())
+    before = mx.convert.module_params_to_numpy(mod)[0]
+    mod.fit(it, num_epoch=1, eval_metric=anchor_ce_metric(mx),
+            optimizer_params=dict(RCNN_OPT))
+    arg, aux = mx.convert.module_params_to_numpy(mod)
+    return {k: arg[k] - before[k] for k in arg}, aux, arg
+
+
+def e2e_fit_phase(mx, rcnn, nms, rk, seed, smi):
+    """Phase 19b: ``get_symbol_train`` (21 classes) through ``Module.fit``
+    on the card for ``RCNN_STEPS`` steps at 600x1000, classic and then
+    captured (``MXNET_FUSE_TRAIN_STEP=1``) where ``_full_step_eligible``
+    admits it; Proposal (pre/post-NMS 12000/2000) and ROIPooling forward
+    on the forward path, ROIPooling's backward on the backward path.
+    Each run launches K7, K8 and K8b once a step (a replay adds what its
+    capture recorded), calls no plain NMS or ROI pooling on the card and
+    ends finite.  Prints step ms, the launches, peak memory and a profile
+    of one classic step by group.  Returns (the classic module, its
+    batches, launches over both runs, step ms by run)."""
+    batches = rcnn_batches(seed + 20, RCNN_STEPS, "train")
+    total = (0, 0, 0)
+    out, times = None, {}
+    for fused in (False, True):
+        name = "captured" if fused else "classic"
+        with environment({"MXNET_FUSE_TRAIN_STEP": "1" if fused else None,
+                          "MXNET_BULK_TRAIN_STEPS": None}), \
+                rcnn_plain_refused(nms, rk):
+            rcnn_counts(nms, rk, reset=True)
+            mod, metric, step_ms, fit_s, peak = rcnn_fit(
+                mx, rcnn, "train", batches, seed)
+            counts = rcnn_counts(nms, rk)
+            eligible = mod._full_step_eligible()
+        replays = mod._exec.graph_replays
+        steady = float(np.median(step_ms[1:]))
+        times[name] = steady
+        print("rcnn end-to-end fit b1 %dx%d, %d classes, f32 on the card "
+              "(%s), %s: fit of %d steps %.2f s (init and bind included); "
+              "step ms %s (CUDA events between batch ends), median after "
+              "the first %.2f ms; graph replays %d; anchor cross-entropy "
+              "by step %s; K7/K8/K8b launches %s (%s a step); peak memory "
+              "allocated %.2f GB, reserved %.2f GB"
+              % (RCNN_IMAGE + (RCNN_CLASSES, smi, name, RCNN_STEPS, fit_s,
+                               ["%.2f" % t for t in step_ms], steady,
+                               replays, ["%.4f" % c for c in metric.ces],
+                               counts, [c / RCNN_STEPS for c in counts])
+                 + peak), flush=True)
+        if fused and not eligible:
+            print("rcnn end-to-end: _full_step_eligible refuses the fused "
+                  "step (the classic two-phase step ran)", flush=True)
+        if counts != (RCNN_STEPS,) * 3:
+            raise RuntimeError("rcnn %s fit launched K7/K8/K8b %s times in "
+                               "%d steps" % (name, counts, RCNN_STEPS))
+        if fused and eligible and replays != RCNN_STEPS - 1:
+            raise RuntimeError("rcnn captured: %d replays in %d steps"
+                               % (replays, RCNN_STEPS))
+        total = tuple(a + b for a, b in zip(total, counts))
+        if not fused:
+            it = rcnn_iter(mx, batches, "train")
+            profile_step(mod, next(it), steady, groups=RCNN_GROUPS)
+            out = mod
+        else:
+            del mod
+        torch.cuda.empty_cache()
+    return out, batches, total, times
+
+
+def rcnn_internals(mx, mod, names, batch):
+    """The outputs ``names`` of ``mod``'s graph on ``batch`` (a dict) under
+    its weights, on the card, as tensors."""
+    inner = mod.symbol.get_internals()
+    group = mx.sym.Group([inner[n] for n in names])
+    args = set(group.list_arguments())
+    ex = group.simple_bind(mx.gpu(0), grad_req="null",
+                           **{k: v.shape for k, v in batch.items()
+                              if k in args})
+    arg, aux = mod.get_params()
+    ex.copy_params_from(arg, aux, allow_extra_params=True)
+    for k, v in batch.items():
+        if k in args:
+            ex.arg_dict[k][:] = v
+    return [o._t for o in ex.forward(is_train=False)]
+
+
+def proposal_nms_inputs(mx, contrib, nms, mod, batch, pre, post):
+    """K7's inputs (boxes, class ids, visit order) in Proposal on
+    ``batch`` under ``mod``'s weights, as its graph runs it."""
+    cls_prob, bbox_pred = rcnn_internals(
+        mx, mod, ["rpn_cls_act_reshape_output", "rpn_bbox_pred_output"],
+        batch)
+    info = torch.from_numpy(batch["im_info"]).to(cls_prob.device)
+    seen = {}
+
+    def capture(boxes, cls_id, order, thresh, force):
+        seen.update(boxes=boxes, cls=cls_id, order=order)
+        return nms.greedy_nms_cuda(boxes, cls_id, order, thresh, force)
+
+    args = (cls_prob, bbox_pred, info, 16, (8.0, 16.0, 32.0),
+            (0.5, 1.0, 2.0), pre, post, 0.7, 16)
+    with torch.no_grad():
+        contrib.proposal(*args, nms=capture)
+    return seen
+
+
+def roi_bytes(x, rois, bwd, design=False):
+    """Bytes ROI pooling's forward (``bwd`` False) or backward must move
+    on these inputs, each read or written once: the forward reads the map
+    and the ROIs and writes the maxima; the backward reads the map, the
+    ROIs and the maxima's gradient and writes the map's.  With ``design``,
+    what K8 and K8b move beside that: K8 writes a count an output, K8b
+    reads the maxima and the counts."""
+    out = rois.shape[0] * x.shape[1] * ROI_POOLED[0] * ROI_POOLED[1] * 4
+    need = x.numel() * 4 * (2 if bwd else 1) + rois.numel() * 4 + out
+    return need + (out * (2 if bwd else 1) if design else 0)
+
+
+def roi_bound_ms(rk, x, rois, bwd):
+    """The least time the card could take for ROI pooling's forward (K8,
+    ``bwd`` False) or backward (K8b) on these inputs: the larger of
+    :func:`roi_bytes` over 3.35 TB/s and the bins' pixels this data visits
+    (a comparison each; the backward also an addition) over 67 TFLOP/s.
+    Returns (ms, "bytes" or "operations")."""
+    B, C, H, W = x.shape
+    nbytes = roi_bytes(x, rois, bwd)
+    _b, hs, he, ws, we = rk.roi_bounds(rois, B, H, W, ROI_POOLED, ROI_SCALE)
+    pixels = int(((he - hs).clamp(min=0)[:, :, None]
+                  * (we - ws).clamp(min=0)[:, None, :]).sum()) * C
+    ops = pixels * (ROI_BWD_OPS if bwd else ROI_FWD_OPS)
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    op_ms = ops / PEAK_F32_FLOPS * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
+                                 else "operations")
+
+
+def roi_kernel_rows(rk, x, rois, g, launches, smi, label):
+    """K8 and K8b on ``x`` (B, C, H, W), ``rois`` and the output gradient
+    ``g`` on the card against their plain versions run on the card:
+    K8's maxima and counts bit for bit, K8b within 1e-5 of the largest
+    |dx| of the plain version and bit for bit across two launches; timed
+    (CUDA events, 10 launches; the plain versions once) beside the bound
+    (:func:`roi_bound_ms`).  Returns the kernels line's two rows, with
+    ``launches`` (K8's, K8b's) from the main path; no library call (core
+    PyTorch has no ROI pooling, and ``torchvision`` is not on the card
+    machine)."""
+    with torch.no_grad():
+        out, count, bnd = rk.roi_pool_fwd_cuda(x, rois, ROI_POOLED,
+                                               ROI_SCALE)
+        pout, pcount, pbnd = rk.roi_pool_fwd_plain(x, rois, ROI_POOLED,
+                                                   ROI_SCALE)
+        dx = rk.roi_pool_bwd_cuda(x, bnd, out, count, g, ROI_POOLED)
+        again = rk.roi_pool_bwd_cuda(x, bnd, out, count, g, ROI_POOLED)
+        pdx = rk.roi_pool_bwd_plain(x, pbnd, pout, pcount, g, ROI_POOLED)
+        torch.cuda.synchronize()
+    if not (torch.equal(out, pout) and torch.equal(count, pcount)):
+        raise RuntimeError("K8 differs from its plain version on %s: %d "
+                           "maxima, %d counts" % (
+                               label, int((out != pout).sum()),
+                               int((count != pcount).sum())))
+    fwd_err = float((out - pout).abs().max())
+    err = float((dx - pdx).abs().max())
+    scale = float(pdx.abs().max())
+    if not err <= 1e-5 * scale:
+        raise RuntimeError("K8b differs from its plain version on %s by "
+                           "%.3g (largest |dx| %.3g)" % (label, err, scale))
+    if not torch.equal(dx, again):
+        raise RuntimeError("K8b is not bit for bit across two launches")
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: rk.roi_pool_fwd_cuda(
+            x, rois, ROI_POOLED, ROI_SCALE), 10)
+        bwd_ms = _time_ms(lambda: rk.roi_pool_bwd_cuda(
+            x, bnd, out, count, g, ROI_POOLED), 10)
+        pf_ms = _time_ms(lambda: rk.roi_pool_fwd_plain(
+            x, rois, ROI_POOLED, ROI_SCALE), 1, warmup=0)
+        pb_ms = _time_ms(lambda: rk.roi_pool_bwd_plain(
+            x, pbnd, pout, pcount, g, ROI_POOLED), 1, warmup=0)
+    rows = []
+    for name, bwd, ms, plain_ms, e, n in (
+            ("roi_pooling_fwd", False, fwd_ms, pf_ms, fwd_err, launches[0]),
+            ("roi_pooling_bwd", True, bwd_ms, pb_ms, err, launches[1])):
+        bound, by = roi_bound_ms(rk, x, rois, bwd)
+        rows.append(dict(name=name, route="cuda",
+                         source="mxnet_tpu_torch/csrc/roi_pooling.cu",
+                         replaces="mxnet_tpu/ops/spatial.py:28",
+                         launches=n, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None))
+    design = [roi_bytes(x, rois, bwd, design=True) / PEAK_BYTES * 1e3
+              for bwd in (False, True)]
+    print("K8/K8b on %s (%s): map %s, %d ROIs, 7x7: K8 equals its plain "
+          "version bit for bit (%d ties, %d empty or non-finite bins), "
+          "K8b within %.3g of it (largest |dx| %.3g), bit for bit across "
+          "two launches; K8 %.4f ms (plain %.2f, bound %.4f, %s; %.1fx the "
+          "bound), K8b %.4f ms (plain %.2f, bound %.4f, %s; %.1fx the "
+          "bound); the bytes this design moves, over the memory rate: K8 "
+          "%.4f ms (with its counts), K8b %.4f ms (with out and count "
+          "re-read); no library call (core PyTorch has no ROI pooling)"
+          % (label, smi, tuple(x.shape), rois.shape[0],
+             int((count > 1).sum()), int((count == 0).sum()), err, scale,
+             fwd_ms, pf_ms, rows[0]["bound_ms"], rows[0]["bound_by"],
+             fwd_ms / rows[0]["bound_ms"], bwd_ms, pb_ms,
+             rows[1]["bound_ms"], rows[1]["bound_by"],
+             bwd_ms / rows[1]["bound_ms"], design[0], design[1]),
+          flush=True)
+    return rows
+
+
+def e2e_roi_tensors(rk, mod, batch, mx):
+    """One more end-to-end step (forward and backward, no update) with
+    ROIPooling's backward recording what it was given: (conv5_3 map,
+    rois, the gradient of pool5) of 19b's own step."""
+    seen = {}
+    real_fwd, real_bwd = rk.ROIPoolFn.forward, rk.ROIPoolFn.backward
+
+    def forward(ctx, data, rois, *rest):
+        seen.update(rois=rois)
+        return real_fwd(ctx, data, rois, *rest)
+
+    def backward(ctx, g):
+        seen.update(x=ctx.saved_tensors[0], g=g.contiguous())
+        return real_bwd(ctx, g)
+
+    rk.ROIPoolFn.forward = staticmethod(forward)
+    rk.ROIPoolFn.backward = staticmethod(backward)
+    try:
+        mod.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(batch[k]) for k in rcnn_names("train")[0]],
+            label=[mx.nd.array(batch[k]) for k in rcnn_names("train")[1]]))
+        torch.cuda.synchronize()
+    finally:
+        rk.ROIPoolFn.forward = real_fwd
+        rk.ROIPoolFn.backward = real_bwd
+    return seen["x"].detach(), seen["rois"].detach(), seen["g"].detach()
+
+
+def detection_test_phase(mx, rcnn, nms, rk, mod, seed, smi):
+    """Phase 19c: 19b's classic weights through ``get_symbol_test`` and
+    ``Module.forward(is_train=False)`` at b1 on the card, two passes over
+    one seeded image: ``forward`` ms (host clock to the outputs' host
+    copy), one K7 and one K8 launch a pass and no plain version on the
+    card; 300 rois with finite boxes in the image, class probabilities
+    that sum to 1, finite box deltas.  Returns (the module, its batch,
+    launches (K7, K8), the second pass's ms)."""
+    batch = rcnn_batches(seed + 21, 1, "test")[0]
+    tmod = rcnn_module(mx, rcnn, "test")
+    tmod.bind(for_training=False,
+              data_shapes=[(k, batch[k].shape) for k in ("data", "im_info")])
+    arg, aux = mod.get_params()
+    tmod.set_params(arg, aux)
+    db = mx.io.DataBatch(data=[mx.nd.array(batch[k])
+                               for k in ("data", "im_info")], label=[])
+    ms = []
+    with rcnn_plain_refused(nms, rk):
+        rcnn_counts(nms, rk, reset=True)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tmod.forward(db, is_train=False)
+            rois, cls_prob, bbox = [o.asnumpy() for o in tmod.get_outputs()]
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = rcnn_counts(nms, rk)
+    h, w = RCNN_IMAGE
+    ok = (rois.shape == (RCNN_TEST_ROIS, 5) and np.isfinite(rois).all()
+          and (rois[:, 0] == 0).all() and (rois[:, 1:] >= 0).all()
+          and (rois[:, [1, 3]] <= w - 1).all()
+          and (rois[:, [2, 4]] <= h - 1).all()
+          and cls_prob.shape == (RCNN_TEST_ROIS, RCNN_CLASSES)
+          and np.allclose(cls_prob.sum(1), 1, atol=1e-5)
+          and np.isfinite(bbox).all())
+    kept = len(np.unique(rois[:, 1:], axis=0))
+    print("rcnn detection b1 %dx%d on the card (%s): forward ms %s (host "
+          "clock to the outputs' host copy; the second pass warm); %d "
+          "distinct rois of %d; K7/K8/K8b launches %s"
+          % (RCNN_IMAGE + (smi, ["%.2f" % t for t in ms], kept,
+                           RCNN_TEST_ROIS, counts)), flush=True)
+    if not ok:
+        raise RuntimeError("rcnn detection outputs are malformed")
+    if counts != (2, 2, 0):
+        raise RuntimeError("rcnn detection launched K7/K8/K8b %s times in "
+                           "2 passes" % (counts,))
+    return tmod, batch, counts[:2], ms[1]
+
+
+def rcnn_checks_phase(mx, bnk, rcnn, contrib, nms, rk, mod, batches, tmod,
+                      tbatch, launches, smi, seed):
+    """Phase 19d: K7 against the plain loop on Proposal's own inputs of
+    19b (A = 12000) and 19c (A = 6000), the keep masks equal, each
+    timed; K8/K8b (:func:`roi_kernel_rows`) on 19b's own conv5_3 map,
+    ROIs and pool5 gradient (R = 2000), K8 on 19c's (R = 300) timed
+    apart; one RPN-graph step on the card against the CPU within 3x the
+    f32 floor of each parameter (:func:`parity_phase`, inputs perturbed
+    by ``RPN_PERTURB``, and the CPU step on one thread among the
+    witnesses: the classifier's bias gradient sums 2294 positions whose
+    terms cancel, and its rounding moves with the order of the sum, not
+    with the input).  Returns the kernels line's K8/K8b rows and K7's times at
+    Proposal's sizes."""
+    k7 = {}
+    for label, m, b, pre, post in (
+            ("19b", mod, batches[0], RCNN_TRAIN_PRE, RCNN_TRAIN_ROIS),
+            ("19c", tmod, tbatch, RCNN_TEST_PRE, RCNN_TEST_ROIS)):
+        seen = proposal_nms_inputs(mx, contrib, nms, m, b, pre, post)
+        with torch.no_grad():
+            keep = nms.greedy_nms_cuda(seen["boxes"], seen["cls"],
+                                       seen["order"], 0.7, True)
+            keep_p = nms.greedy_nms_plain(seen["boxes"], seen["cls"],
+                                          seen["order"], 0.7, True)
+        torch.cuda.synchronize()
+        if not torch.equal(keep, keep_p):
+            raise RuntimeError("K7 on Proposal's inputs of %s keeps %d "
+                               "boxes, the plain loop %d" % (
+                                   label, int(keep.sum()),
+                                   int(keep_p.sum())))
+        ms = _time_ms(lambda s=seen: nms.greedy_nms_cuda(
+            s["boxes"], s["cls"], s["order"], 0.7, True), 10)
+        k7[label] = dict(a=int(seen["boxes"].shape[1]), kept=int(keep.sum()),
+                         ms=ms)
+        print("K7 on Proposal's own inputs of %s (%s): A = %d, keeps %d, "
+              "equal to the plain loop; %.4f ms"
+              % (label, smi, k7[label]["a"], k7[label]["kept"], ms),
+              flush=True)
+    x, rois, g = e2e_roi_tensors(rk, mod, batches[0], mx)
+    rows = roi_kernel_rows(rk, x, rois, g, launches, smi,
+                           "19b's conv5_3, ROIs and pool5 gradient")
+    x3, r3 = rcnn_internals(mx, tmod, ["relu5_3_output", "rois_output"],
+                            tbatch)
+    with torch.no_grad():
+        out, count, _ = rk.roi_pool_fwd_cuda(x3, r3, ROI_POOLED, ROI_SCALE)
+        pout, pcount, _ = rk.roi_pool_fwd_plain(x3, r3, ROI_POOLED,
+                                                ROI_SCALE)
+    if not (torch.equal(out, pout) and torch.equal(count, pcount)):
+        raise RuntimeError("K8 differs from its plain version on 19c")
+    k8_test = _time_ms(lambda: rk.roi_pool_fwd_cuda(
+        x3, r3, ROI_POOLED, ROI_SCALE), 10)
+    print("K8 at 19c's R = %d (%s): equal to its plain version bit for "
+          "bit; %.4f ms (bound %.4f)" % (r3.shape[0], smi, k8_test,
+                                        roi_bound_ms(rk, x3, r3, False)[0]),
+          flush=True)
+    rows[0]["detection_r300_ms"] = k8_test
+    b = rcnn_batches(seed + 22, 1, "rpn")[0]
+    parity_phase(mx, bnk, seed, lambda mx, ctx=None: rcnn_module(
+        mx, rcnn, "rpn", ctx), "RPN (VGG16, 600x1000)",
+        step=rcnn_step_updates, data=(b.pop("data"), b),
+        perturb=RPN_PERTURB, reorder=True)
+    return rows, k7
+
+
+def rcnn_phase(mx, bnk, seed, smi):
+    """Phase 19: Faster R-CNN (VGG16) at 600x1000: the RPN fit (19a), the
+    end-to-end fit classic and captured (19b), detection (19c) and the
+    kernels and the RPN step against the CPU (19d).  Returns (K7's
+    launches, the K8/K8b rows, K7's times at Proposal's sizes)."""
+    from mxnet_tpu_torch.models import rcnn
+    from mxnet_tpu_torch.ops import contrib, nms_kernel
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    t0 = time.perf_counter()
+    rpn_fit_phase(mx, rcnn, nms_kernel, rk, seed, smi)
+    t1 = time.perf_counter()
+    mod, batches, fit_counts, _times = e2e_fit_phase(mx, rcnn, nms_kernel,
+                                                     rk, seed, smi)
+    t2 = time.perf_counter()
+    tmod, tbatch, det_counts, _det_ms = detection_test_phase(
+        mx, rcnn, nms_kernel, rk, mod, seed, smi)
+    t3 = time.perf_counter()
+    launches = (fit_counts[1] + det_counts[1], fit_counts[2])
+    rows, k7 = rcnn_checks_phase(mx, bnk, rcnn, contrib, nms_kernel, rk,
+                                 mod, batches, tmod, tbatch, launches, smi,
+                                 seed)
+    del mod, tmod
+    torch.cuda.empty_cache()
+    print("phase 19 %.1f s: RPN fit %.1f, end-to-end fits %.1f, detection "
+          "%.1f, checks %.1f" % (time.perf_counter() - t0, t1 - t0, t2 - t1,
+                                 t3 - t2, time.perf_counter() - t3),
+          flush=True)
+    return fit_counts[0] + det_counts[0], rows, k7
 
 
 def main():
@@ -5690,6 +6330,7 @@ def main():
     fleet_phase(mx, args.seed, decode.pop("reuse"))
     toolkit = rnn_toolkit_phase(mx, rk, args.seed, smi, lstm_fused)
     k7_row, classic_bn = detection_phase(mx, bnk, args.seed, smi)
+    rcnn_k7, roi_rows, k7_proposal = rcnn_phase(mx, bnk, args.seed, smi)
 
     main_row = rows[(4, True)]  # the bucket-4 dispatch's shape
     source = "mxnet_tpu_torch/csrc/batch_norm.cu"
@@ -5699,7 +6340,7 @@ def main():
     # ResNet-50 step, and under "inception_v3" over the 94 of one b128
     # Inception-v3 step; launches over the four fits of the main path
     # (ResNet-50 and Inception-v3, classic and sync-free) and phase 18c's
-    # BatchNorm networks (VGG-16-BN and Inception-BN)
+    # BatchNorm networks (VGG-16-BN, Inception-BN, Inception-ResNet-v2)
     inc_launches = [sum(inception[run]["launches"][i]
                         for run in ("classic", "sync_free"))
                     for i in (0, 1)]
@@ -5736,9 +6377,15 @@ def main():
             name=kname, route="cuda", source="mxnet_tpu_torch/csrc/lstm.cu",
             replaces="mxnet_tpu/ops/rnn_pallas.py:%d" % line, launches=n,
             **lstm_rows[(kid, t_max)]))
-    # K7: launches over phase 18b's two detection passes, times at SSD300
-    # b32 (A = 7308) on that batch's own inputs
+    # K7: launches over phase 18b's two detection passes and phase 19's
+    # Proposal calls (19b's fits, 19c's passes), times at SSD300 b32 (A =
+    # 7308) on that batch's own inputs, and at Proposal's own inputs
+    k7_row["launches"] += rcnn_k7
+    k7_row["proposal"] = k7_proposal
     kernels.append(k7_row)
+    # K8/K8b: launches over 19b's fits (and 19c's passes for K8), times at
+    # 19b's own map, ROIs and gradient (R = 2000, C = 512, 37x62)
+    kernels.extend(roi_rows)
     print(json.dumps({"kernels": kernels}))
     print("nvidia-smi: %s" % smi)
     print(json.dumps({"ok": True, "device": {

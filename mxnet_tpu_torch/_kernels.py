@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
 #: kernel library name -> source file under csrc/
 SOURCES = {"flash_attention": "flash_attention.cu",
            "batch_norm": "batch_norm.cu", "lstm": "lstm.cu",
-           "nms": "nms.cu"}
+           "nms": "nms.cu", "roi_pooling": "roi_pooling.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

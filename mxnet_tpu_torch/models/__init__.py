@@ -1,13 +1,14 @@
 """Model definitions built through ``mxnet_tpu_torch.symbol``."""
 
-from . import (alexnet, googlenet, inception_bn, inception_v3, lenet,
-               lstm_lm, mlp, resnet, ssd_detect, ssd_vgg16, transformer_lm,
-               vgg)
+from . import (alexnet, googlenet, inception_bn, inception_resnet_v2,
+               inception_v3, lenet, lstm_lm, mlp, rcnn, resnet, ssd_detect,
+               ssd_vgg16, transformer_lm, vgg)
 from .long_context_lm import build_lm, copy_task
 
 __all__ = ["alexnet", "build_lm", "copy_task", "get_symbol", "googlenet",
-           "inception_bn", "inception_v3", "lenet", "lstm_lm", "mlp",
-           "resnet", "ssd_detect", "ssd_vgg16", "transformer_lm", "vgg"]
+           "inception_bn", "inception_resnet_v2", "inception_v3", "lenet",
+           "lstm_lm", "mlp", "rcnn", "resnet", "ssd_detect", "ssd_vgg16",
+           "transformer_lm", "vgg"]
 
 _BUILDERS = {
     "lenet": lenet.get_symbol,
@@ -18,6 +19,7 @@ _BUILDERS = {
     "inception-bn": inception_bn.get_symbol,
     "inception-v3": inception_v3.get_symbol,
     "googlenet": googlenet.get_symbol,
+    "inception-resnet-v2": inception_resnet_v2.get_symbol,
 }
 
 

@@ -14,6 +14,7 @@ from . import loss  # noqa: F401
 from . import attention  # noqa: F401
 from . import rnn  # noqa: F401
 from . import contrib  # noqa: F401
+from . import spatial  # noqa: F401
 from . import infer  # noqa: F401  (attaches backward shape rules)
 
 __all__ = ["registry", "OpDef", "get", "list_ops", "register"]

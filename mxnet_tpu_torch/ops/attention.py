@@ -39,6 +39,7 @@ the ``MultiHeadAttention`` op makes cost no copy either way.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -256,15 +257,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, dlse, causal, scale):
 flash_attention_bwd_cuda.launches = 0
 
 
-def _route(q, cuda_fn, plain_fn):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    dev = q.device.type
-    if dev == "cuda":
-        return cuda_fn
-    if dev == "cpu":
-        return plain_fn
-    raise MXNetError("flash attention: no implementation for device %s"
-                     % q.device)
+#: the kernel for CUDA tensors, the plain version for CPU tensors
+_route = functools.partial(launches.route, what="flash attention")
 
 
 class FlashAttention(torch.autograd.Function):

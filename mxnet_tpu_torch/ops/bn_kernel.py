@@ -30,6 +30,7 @@ statistics agrees bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -246,15 +247,8 @@ bn_fwd_cuda.launches = 0
 bn_bwd_cuda.launches = 0
 
 
-def _route(x, cuda_fn, plain_fn):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    dev = x.device.type
-    if dev == "cuda":
-        return cuda_fn
-    if dev == "cpu":
-        return plain_fn
-    raise MXNetError("batch norm: no implementation for device %s"
-                     % x.device)
+#: the kernel for CUDA tensors, the plain version for CPU tensors
+_route = functools.partial(launches.route, what="batch norm")
 
 
 class BatchNormTrain(torch.autograd.Function):

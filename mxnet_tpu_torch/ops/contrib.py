@@ -1,14 +1,13 @@
-"""SSD's detection ops (counterpart of ``mxnet_tpu/ops/contrib.py``):
+"""The detection ops (counterpart of ``mxnet_tpu/ops/contrib.py``): SSD's
 ``_contrib_MultiBoxPrior``, ``_contrib_MultiBoxTarget`` and
-``_contrib_MultiBoxDetection``.  ``_contrib_Proposal`` (Faster-RCNN) is
-not ported yet.
+``_contrib_MultiBoxDetection``, and Faster R-CNN's ``_contrib_Proposal``.
 
 Everything is static-shape and batched, as in the JAX package, and built
 from torch ops as XLA lowers them there, apart from greedy NMS, which is
-kernel K7 on the card (``ops/nms_kernel.py``).  MultiBoxTarget reads
-nothing back to the host (no ``.item()``, ``nonzero`` or boolean-mask
-indexing), so a training step through it can be captured as a CUDA
-graph (``Executor.train_sgd``).  Every argsort is stable, as
+kernel K7 on the card (``ops/nms_kernel.py``).  MultiBoxTarget and
+Proposal read nothing back to the host (no ``.item()``, ``nonzero`` or
+boolean-mask indexing), so a training step through them can be captured
+as a CUDA graph (``Executor.train_sgd``).  Every argsort is stable, as
 ``jnp.argsort`` is: ties (the ``-inf`` of non-candidates, equal
 probabilities) keep index order.  The one-hot selection of the JAX
 package (a matmul at HIGHEST precision, ``contrib.py:189-195``) is a
@@ -24,6 +23,7 @@ from __future__ import annotations
 import ast
 import math
 
+import numpy as np
 import torch
 
 from .nms_kernel import greedy_nms, iou_matrix
@@ -317,3 +317,151 @@ register("_contrib_MultiBoxDetection", _multibox_detection,
                  "variances": (_pftuple, (0.1, 0.1, 0.2, 0.2)),
                  "nms_topk": (pint, -1)},
          aliases=("MultiBoxDetection",), hint="multiboxdetection")
+
+
+# ---------------------------------------------------------------------------
+# Proposal: Faster R-CNN's RPN proposals (``proposal.cc``): anchors at
+# feature_stride, box-delta decode, clip to the image, min-size filter,
+# pre-NMS top-N, greedy NMS (K7), post-NMS top-N rois.
+# ---------------------------------------------------------------------------
+def gen_base_anchors(base_size, scales, ratios):
+    """The RPN base anchors around (0, 0, base - 1, base - 1), in float64
+    with Python's ``round`` and then cast, as
+    ``mxnet_tpu/ops/contrib.py:317-331`` makes them."""
+    out = []
+    w = h = float(base_size)
+    cx = (w - 1) * 0.5
+    cy = (h - 1) * 0.5
+    size = w * h
+    for r in ratios:
+        ws = round(np.sqrt(size / r))
+        hs = round(ws * r)
+        for s in scales:
+            wss, hss = ws * s, hs * s
+            out.append([cx - 0.5 * (wss - 1), cy - 0.5 * (hss - 1),
+                        cx + 0.5 * (wss - 1), cy + 0.5 * (hss - 1)])
+    return np.asarray(out, np.float32)
+
+
+_base_cache = {}
+
+
+def _rpn_anchors(h, w, stride, scales, ratios, device):
+    """(H*W*K, 4) anchors of an h x w map, made once per shape and device."""
+    key = (h, w, stride, scales, ratios, str(device))
+    out = _base_cache.get(key)
+    if out is None:
+        base = torch.from_numpy(gen_base_anchors(stride, scales, ratios))
+        sy = torch.arange(h, dtype=torch.float32) * stride
+        sx = torch.arange(w, dtype=torch.float32) * stride
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        shift = torch.stack([gx, gy, gx, gy], dim=-1)  # (H, W, 4)
+        out = _base_cache[key] = (shift[:, :, None, :] + base[None, None]) \
+            .reshape(-1, 4).to(device)
+    return out
+
+
+def _decode_rpn(anchors, d, info):
+    """Deltas ``d (B, A, 4)`` on ``anchors (A, 4)`` -> corner boxes ``(B, A,
+    4)`` with the reference's +1 widths, clipped to each image of
+    ``info (B, 3)`` = [height, width, scale]."""
+    aw = anchors[:, 2] - anchors[:, 0] + 1.0
+    ah = anchors[:, 3] - anchors[:, 1] + 1.0
+    ax = anchors[:, 0] + aw * 0.5
+    ay = anchors[:, 1] + ah * 0.5
+    cx = d[..., 0] * aw + ax
+    cy = d[..., 1] * ah + ay
+    w = torch.exp(torch.clamp(d[..., 2], -10, 10)) * aw
+    h = torch.exp(torch.clamp(d[..., 3], -10, 10)) * ah
+    zero = torch.zeros((), device=d.device)
+    imw = info[:, 1, None] - 1.0
+    imh = info[:, 0, None] - 1.0
+    return torch.stack([
+        torch.minimum(torch.maximum(cx - 0.5 * w, zero), imw),
+        torch.minimum(torch.maximum(cy - 0.5 * h, zero), imh),
+        torch.minimum(torch.maximum(cx + 0.5 * w - 1.0, zero), imw),
+        torch.minimum(torch.maximum(cy + 0.5 * h - 1.0, zero), imh)], dim=-1)
+
+
+def proposal(cls_prob, bbox_pred, im_info, feature_stride, scales, ratios,
+             pre_n, post_n, nms_thresh, min_size, nms=greedy_nms):
+    """``(rois (B*post_n, 5), scores (B*post_n, 1))`` of the RPN's
+    ``cls_prob (B, 2K, H, W)`` (background then foreground),
+    ``bbox_pred (B, 4K, H, W)`` and ``im_info (B, 3)``; NMS through
+    ``nms`` (:func:`~.nms_kernel.greedy_nms`).  Rows past the kept boxes
+    repeat the first proposal.  Nothing is read back to the host."""
+    B, _, H, W = cls_prob.shape
+    dev = cls_prob.device
+    anchors = _rpn_anchors(H, W, feature_stride, scales, ratios, dev)
+    K = anchors.shape[0] // (H * W)
+    A = anchors.shape[0]
+    fg = cls_prob[:, K:].permute(0, 2, 3, 1).reshape(B, -1)  # (B, H*W*K)
+    d = bbox_pred.reshape(B, K, 4, H, W).permute(0, 3, 4, 1, 2) \
+        .reshape(B, -1, 4)
+    boxes = _decode_rpn(anchors, d, im_info)
+    ms = min_size * im_info[:, 2, None]
+    ok = ((boxes[..., 2] - boxes[..., 0] + 1.0) >= ms) & \
+        ((boxes[..., 3] - boxes[..., 1] + 1.0) >= ms)
+    score = torch.where(ok, fg, torch.full((), -math.inf, device=dev))
+    n_pre = min(pre_n, A) if pre_n > 0 else A
+    # lax.top_k's order: descending, the lower index first among equals
+    top_score, top_idx = torch.sort(score, dim=1, descending=True,
+                                    stable=True)
+    top_score, top_idx = top_score[:, :n_pre], top_idx[:, :n_pre]
+    top_boxes = boxes.gather(1, top_idx[:, :, None].expand(B, n_pre, 4))
+    finite = torch.isfinite(top_score)
+    cls0 = torch.where(finite, torch.zeros((), device=dev),
+                       torch.full((), -1.0, device=dev))
+    pos = torch.arange(n_pre, device=dev).expand(B, n_pre)
+    kmask = nms(top_boxes, cls0, pos, nms_thresh, True) & finite
+    # the kept rows first, in visit order (a stable sort of a key)
+    sel = torch.argsort(torch.where(kmask, pos, n_pre + pos), dim=1)
+    if n_pre >= post_n:
+        sel = sel[:, :post_n]
+    else:
+        sel = torch.cat([sel, torch.zeros((B, post_n - n_pre),
+                                          dtype=sel.dtype, device=dev)], 1)
+    out_boxes = top_boxes.gather(1, sel[:, :, None].expand(B, post_n, 4))
+    s = top_score.gather(1, sel)
+    out_score = torch.where(torch.isfinite(s), s, torch.zeros((), device=dev))
+    filled = torch.arange(post_n, device=dev)[None, :] \
+        < kmask.sum(dim=1, keepdim=True)
+    out_boxes = torch.where(filled[..., None], out_boxes, out_boxes[:, :1])
+    out_score = torch.where(filled, out_score, out_score[:, :1])
+    bidx = torch.arange(B, dtype=out_boxes.dtype, device=dev)[:, None, None] \
+        .expand(B, post_n, 1)
+    rois = torch.cat([bidx, out_boxes], dim=-1).reshape(B * post_n, 5)
+    return rois, out_score.reshape(B * post_n, 1)
+
+
+def _proposal(attrs, inputs, aux, is_train):
+    cls_prob, bbox_pred, im_info = inputs
+    rows = cls_prob.shape[0] * attrs["rpn_post_nms_top_n"]
+    if _meta(cls_prob):
+        outs = [torch.empty((rows, 5), device="meta"),
+                torch.empty((rows, 1), device="meta")]
+    else:
+        # the reference declares no backward: no gradient, as the JAX
+        # package's stop_gradient; iou_loss is ignored there too
+        with torch.no_grad():
+            outs = list(proposal(
+                cls_prob.detach(), bbox_pred.detach(), im_info.detach(),
+                attrs["feature_stride"], attrs["scales"], attrs["ratios"],
+                attrs["rpn_pre_nms_top_n"], attrs["rpn_post_nms_top_n"],
+                attrs["threshold"], attrs["rpn_min_size"]))
+    return outs if attrs["output_score"] else outs[:1]
+
+
+register("_contrib_Proposal", _proposal,
+         arguments=("cls_prob", "bbox_pred", "im_info"),
+         outputs=lambda a: (["output", "score"] if a["output_score"]
+                            else ["output"]),
+         params={"rpn_pre_nms_top_n": (pint, 6000),
+                 "rpn_post_nms_top_n": (pint, 300),
+                 "threshold": (pfloat, 0.7), "rpn_min_size": (pint, 16),
+                 "scales": (_pftuple, (4.0, 8.0, 16.0, 32.0)),
+                 "ratios": (_pftuple, (0.5, 1.0, 2.0)),
+                 "feature_stride": (pint, 16),
+                 "output_score": (pbool, False),
+                 "iou_loss": (pbool, False)},
+         aliases=("Proposal",), hint="proposal")

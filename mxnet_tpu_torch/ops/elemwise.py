@@ -1,6 +1,7 @@
 """Elementwise ops (counterpart of ``mxnet_tpu/ops/elemwise.py``): the
 binary ``elemwise_add/sub/mul/div`` that ``Symbol``'s arithmetic emits,
-and the scalar forms ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``, and ``smooth_l1``.
+the scalar forms ``_plus/_minus/_rminus/_mul/_div/_rdiv_scalar``,
+``smooth_l1`` and ``BlockGrad`` (``stop_gradient``).
 Each is one torch op (cuBLAS-free elementwise kernels on the card), as
 XLA lowers them in the JAX package."""
 
@@ -40,3 +41,5 @@ def _smooth_l1(data, scalar):
 
 
 simple("smooth_l1", _smooth_l1, params={"scalar": (pfloat, 1.0)})
+# the identity whose gradient is zero (``jax.lax.stop_gradient``)
+simple("BlockGrad", torch.Tensor.detach, aliases=("stop_gradient",))

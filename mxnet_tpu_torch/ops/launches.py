@@ -2,7 +2,8 @@
 
 Each wrapper calls :func:`count` with itself where it launches its
 kernel, and nowhere else; ``wrapper.launches`` holds the count (reset
-freely).  A launch made while the calling thread's stream captures a CUDA
+freely).  :func:`route` picks a wrapper or its plain version by device.
+A launch made while the calling thread's stream captures a CUDA
 graph runs nothing: inside :func:`recording` it goes into the recording
 instead, and :func:`replayed` adds it to the counts each time the graph
 replays it.  The recording is not per thread: autograd runs a captured
@@ -15,9 +16,22 @@ import contextlib
 
 import torch
 
-__all__ = ["count", "recording", "replayed"]
+from ..base import MXNetError
+
+__all__ = ["count", "recording", "replayed", "route"]
 
 _recording = None
+
+
+def route(x, cuda_fn, plain_fn, what):
+    """``cuda_fn`` for a CUDA tensor ``x``, ``plain_fn`` for a CPU one;
+    raises for any other device (``what`` names the op)."""
+    dev = x.device.type
+    if dev == "cuda":
+        return cuda_fn
+    if dev == "cpu":
+        return plain_fn
+    raise MXNetError("%s: no implementation for device %s" % (what, x.device))
 
 
 def count(wrapper):

@@ -187,10 +187,6 @@ greedy_nms_cuda.launches = 0
 
 def greedy_nms(boxes, cls_id, order, nms_thresh, force):
     """K7 for CUDA tensors, :func:`greedy_nms_plain` for CPU tensors."""
-    dev = boxes.device.type
-    if dev == "cuda":
-        return greedy_nms_cuda(boxes, cls_id, order, nms_thresh, force)
-    if dev == "cpu":
-        return greedy_nms_plain(boxes, cls_id, order, nms_thresh, force)
-    raise MXNetError("greedy NMS: no implementation for device %s"
-                     % boxes.device)
+    fn = launches.route(boxes, greedy_nms_cuda, greedy_nms_plain,
+                        "greedy NMS")
+    return fn(boxes, cls_id, order, nms_thresh, force)

@@ -26,6 +26,7 @@ of gate k, bh (4, H), h0 and c0 (N, H); gate order i, f, g, o.  f32 only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -258,14 +259,8 @@ lstm_fwd_cuda.launches = 0
 lstm_bwd_cuda.launches = 0
 
 
-def _route(x, cuda_fn, plain_fn):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    dev = x.device.type
-    if dev == "cuda":
-        return cuda_fn
-    if dev == "cpu":
-        return plain_fn
-    raise MXNetError("LSTM: no implementation for device %s" % x.device)
+#: the kernel for CUDA tensors, the plain version for CPU tensors
+_route = functools.partial(launches.route, what="LSTM")
 
 
 class LSTMSeqFn(torch.autograd.Function):

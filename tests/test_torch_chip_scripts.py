@@ -454,8 +454,8 @@ def test_ssd_phase_helpers_run_on_the_cpu():
     """Phase 18's SSD step helper at 96x96 b2 on the CPU (the parity
     phase's step), its constants against the graphs (SSD300's 7308
     anchors; the classic networks bind at their sides, VGG-16-BN with 13
-    BatchNorms and Inception-BN with 69), and its IoU count against the
-    greedy loop counted by brute force."""
+    BatchNorms, Inception-BN with 69 and Inception-ResNet-v2 with 244),
+    and its IoU count against the greedy loop counted by brute force."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.models import ssd_vgg16
 
@@ -479,7 +479,8 @@ def test_ssd_phase_helpers_run_on_the_cpu():
         assert mod.symbol.infer_shape(data=(2, 3, side, side))[1] == \
             [(2, 1000)]
     assert bns == {"vgg{}": 0, "vgg{'batch_norm': True}": 13,
-                   "googlenet{}": 0, "inception-bn{}": 69, "alexnet{}": 0}
+                   "googlenet{}": 0, "inception-bn{}": 69, "alexnet{}": 0,
+                   "inception-resnet-v2{}": 244}
     rs = np.random.RandomState(0)
     for force in (True, False):
         keep = rs.rand(3, 40) < 0.6
@@ -488,3 +489,114 @@ def test_ssd_phase_helpers_run_on_the_cpu():
                    range(i + 1, 40) if keep[b, i] and cid[b, i] >= 0
                    and cid[b, p] >= 0 and (force or cid[b, p] == cid[b, i]))
         assert smoke.nms_ops(keep, cid, force) == want * smoke.NMS_IOU_OPS
+
+
+def test_rcnn_phase_helpers_run_on_the_cpu():
+    """Phase 19's helpers without a card: its batches (the example's
+    anchor labels, a tenth ignored; weights on the positive anchors and
+    foreground ROIs), its constants against the graphs at 600x1000 (a
+    37x62 conv5 map, 20,646 anchors, 2000 and 300 ROIs), its iterator
+    (bound by the end-to-end graph at 64x64; through ``Module.fit`` of
+    the RPN graph), the RPN step of the parity phase, the anchor metric, and K8/K8b's
+    bound against a count of the bytes ROI pooling needs and a brute-force
+    count of the bins' pixels."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import rcnn
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    smoke = _script("chip_smoke")
+    assert smoke.rcnn_feature_map() == (37, 62)
+    for build, outs in (("rpn", [(1, 2, 20646), (1, 36, 37, 62)]),
+                        ("train", [(1, 2, 20646), (1, 36, 37, 62),
+                                   (2000, 21), (2000, 84)]),
+                        ("test", [(300, 5), (300, 21), (300, 84)])):
+        b = smoke.rcnn_batches(0, 1, build)[0]
+        net = smoke.rcnn_module(mx, rcnn, build, mx.cpu()).symbol
+        data, labels = smoke.rcnn_names(build)
+        assert sorted(b) == sorted(data + labels)
+        assert set(b) <= set(net.list_arguments())
+        assert net.infer_shape(**{k: v.shape for k, v in b.items()})[1] \
+            == outs
+    small = (64, 64)
+    b = smoke.rcnn_batches(3, 2, "train", image=small, classes=4)
+    lab = b[0]["label"]
+    assert lab.shape == (1, 9 * 16) and (lab == -1).any() and \
+        (lab == 1).any() and (lab == 0).any()
+    w = b[0]["bbox_weight"].reshape(1, 9, 4, 4, 4)
+    assert ((w > 0) == (lab.reshape(1, 9, 1, 4, 4) > 0)).all()
+    assert ((b[0]["roi_bbox_weight"] > 0).any(1)
+            == (b[0]["roi_label"] > 0)).all()
+    it = smoke.rcnn_iter(mx, b, "train")
+    mod = mx.mod.Module(rcnn.get_symbol_train(num_classes=4),
+                        data_names=("data", "im_info"),
+                        label_names=smoke.RPN_LABELS + smoke.ROI_LABELS,
+                        context=mx.cpu())
+    mod.bind(it.provide_data, it.provide_label)
+    assert [tuple(d.shape) for d in next(it).label] == [
+        tuple(d.shape) for d in it.provide_label]
+    assert len(list(it)) == 1
+    rpn_batches = smoke.rcnn_batches(5, 2, "rpn", image=small)
+    mod = mx.mod.Module(rcnn.get_symbol_rpn(), label_names=smoke.RPN_LABELS,
+                        context=mx.cpu())
+    metric = smoke.anchor_ce_metric(mx)
+    mod.fit(smoke.rcnn_iter(mx, rpn_batches, "rpn"), eval_metric=metric,
+            optimizer_params=dict(smoke.RCNN_OPT),
+            initializer=mx.init.Xavier(), num_epoch=1)
+    assert len(metric.ces) == 2 and np.isfinite(metric.ces).all()
+    rpn = smoke.rcnn_batches(4, 1, "rpn", image=small)[0]
+    upd, aux, _ = smoke.rcnn_step_updates(
+        mx, lambda mx, ctx=None: smoke.rcnn_module(mx, rcnn, "rpn", ctx),
+        mx.cpu(), rpn.pop("data"), rpn, 0)
+    assert aux == {} and all(np.isfinite(v).all() for v in upd.values())
+    assert np.abs(upd["rpn_cls_score_weight"]).max() > 0
+    # the metric: -log of each non-ignored anchor's label probability
+    p = np.array([[[0.2, 0.6, 0.5], [0.8, 0.4, 0.5]]], np.float32)
+    metric = smoke.anchor_ce_metric(mx)
+    metric.update([mx.nd.array([[1.0, 0.0, -1.0]])], [mx.nd.array(p)])
+    np.testing.assert_allclose(metric.ces[0],
+                               -(np.log(0.8) + np.log(0.6)) / 2, rtol=1e-6)
+    # the bound's pixel count
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.rand(1, 3, 9, 13).astype(np.float32))
+    rois = torch.tensor([[0, 0, 0, 200, 140], [0, 30, 20, 90, 100],
+                         [0, 500, 500, 600, 600]], dtype=torch.float32)
+    bnd = rk.roi_bounds(rois, 1, 9, 13, smoke.ROI_POOLED, smoke.ROI_SCALE)
+    pixels = sum(max(0, int(bnd[2][r, i] - bnd[1][r, i]))
+                 * max(0, int(bnd[4][r, j] - bnd[3][r, j]))
+                 for r in range(3) for i in range(7) for j in range(7)) * 3
+    for bwd, ops in ((False, 1), (True, 2)):
+        ms, by = smoke.roi_bound_ms(rk, x, rois, bwd)
+        # the map (and its gradient), the ROIs, the maxima (or their
+        # gradient); K8 also writes the counts, K8b also reads maxima
+        # and counts
+        nbytes = x.numel() * 4 * (2 if bwd else 1) + 3 * 20 + 3 * 3 * 49 * 4
+        assert smoke.roi_bytes(x, rois, bwd) == nbytes
+        assert smoke.roi_bytes(x, rois, bwd, design=True) == \
+            nbytes + 3 * 3 * 49 * 4 * (2 if bwd else 1)
+        assert ms == max(nbytes / smoke.PEAK_BYTES,
+                         pixels * ops / smoke.PEAK_F32_FLOPS) * 1e3
+        assert by == ("bytes" if nbytes / smoke.PEAK_BYTES
+                      >= pixels * ops / smoke.PEAK_F32_FLOPS
+                      else "operations")
+
+
+def test_plain_refused_passes_cpu_calls_and_restores():
+    """The plain versions keep working on CPU tensors inside the block
+    (keyword arguments too) and are restored after it, also when the
+    block raises."""
+    from types import SimpleNamespace as NS
+
+    smoke = _script("chip_smoke")
+
+    def plain(x, y=1):
+        return x + y
+
+    mod = NS(plain=plain)
+    with smoke.plain_refused((mod, "plain")):
+        assert mod.plain is not plain
+        assert torch.equal(mod.plain(torch.ones(2), y=2), torch.full((2,), 3.0))
+    assert mod.plain is plain
+    with pytest.raises(KeyError):
+        with smoke.plain_refused((mod, "plain")):
+            raise KeyError("x")
+    assert mod.plain is plain

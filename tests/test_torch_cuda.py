@@ -2162,3 +2162,271 @@ def test_inception_bn_step_launches_k1_and_k2_at_every_batchnorm(
     for k in caux:
         np.testing.assert_allclose(gaux[k], caux[k], rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+
+
+# -- Faster R-CNN: K8/K8b, Proposal through K7, the spatial ops ----------------
+def _roi_inputs(r, seed, c=512, hw=(37, 62), image=(600, 1000), batch=1):
+    """A ReLU map with a block of zeros (whole bins tie), ``r`` ROIs with
+    corners uniform over the image (one covering the whole map, a few past
+    its edges, so some bins are empty) and an output gradient, on the
+    card."""
+    rs = np.random.RandomState(seed)
+    x = np.maximum(rs.normal(0, 1, (batch, c) + hw), 0).astype(np.float32)
+    x[:, :, 5:15, 10:30] = 0.0
+    xy = rs.uniform(0, 1, (r, 4))
+    rois = np.zeros((r, 5), np.float32)
+    rois[:, 0] = rs.randint(0, batch, r)
+    xs = np.sort(xy[:, :2] * (image[1] - 1), 1)
+    ys = np.sort(xy[:, 2:] * (image[0] - 1), 1)
+    rois[:, 1], rois[:, 3], rois[:, 2], rois[:, 4] = xs[:, 0], xs[:, 1], \
+        ys[:, 0], ys[:, 1]
+    rois[0, 1:] = [0, 0, image[1] - 1, image[0] - 1]
+    rois[1:4, 1:] = [image[1] + 40, image[0] + 40, image[1] + 200,
+                     image[0] + 90]
+    g = rs.normal(0, 1, (r, c, 7, 7)).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    return [torch.from_numpy(a).to(dev) for a in (x, rois, g)]
+
+
+def _k8_k8b_equal(x, rois, g, pooled=(7, 7), scale=1 / 16.0):
+    """K8 and K8b (one counted launch each) against the plain versions on
+    the card: maxima and counts bit for bit, dx within 1e-5 of its
+    largest magnitude and bit for bit across two launches."""
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    before = (rk.roi_pool_fwd_cuda.launches, rk.roi_pool_bwd_cuda.launches)
+    out, count, bounds = rk.roi_pool_fwd_cuda(x, rois, pooled, scale)
+    dx = rk.roi_pool_bwd_cuda(x, bounds, out, count, g, pooled)
+    torch.cuda.synchronize()
+    assert (rk.roi_pool_fwd_cuda.launches,
+            rk.roi_pool_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
+    again = rk.roi_pool_bwd_cuda(x, bounds, out, count, g, pooled)
+    pout, pcount, pbounds = rk.roi_pool_fwd_plain(x, rois, pooled, scale)
+    pdx = rk.roi_pool_bwd_plain(x, pbounds, pout, pcount, g, pooled)
+    assert torch.equal(out, pout) and torch.equal(count, pcount)
+    assert float((dx - pdx).abs().max()) <= 1e-5 * float(pdx.abs().max())
+    assert torch.equal(dx, again)
+    return count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2000, 300])
+def test_k8_and_k8b_match_plain_at_rcnn_shapes(cuda_device, r):
+    """At phase 19b's (2000 ROIs) and 19c's (300) shapes: a 512-channel
+    37x62 map, 7x7 bins, ties (a block of zeros), empty bins (ROIs past
+    the edges) and one ROI over the whole map."""
+    count = _k8_k8b_equal(*_roi_inputs(r, r))
+    assert (count > 1).any() and (count[1:4] == 0).all()
+    assert (count[0] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled,scale", [((3, 4), 0.3), ((1, 1), 1.0),
+                                          ((7, 7), 0.0625)])
+def test_k8_and_k8b_on_small_maps_and_batches(cuda_device, pooled, scale):
+    """Two images, batch indices past the ends (clamped, a negative one
+    counted from the end), a scale that is not a power of two, one bin
+    per ROI, and ROIs on half-integer coordinates."""
+    x, rois, _g = _roi_inputs(64, 3, c=5, hw=(9, 13), image=(144, 208),
+                              batch=2)
+    rois[:8, 0] = torch.tensor([2, 1, 0, -1, 5, 2.7, -0.5, -1.5])
+    rois[8:16, 1:] = (torch.arange(32, device=rois.device).reshape(8, 4)
+                      .float() + 0.5) * 16
+    rois[8:16, 1:] = torch.stack([rois[8:16, [1, 3]].min(1).values,
+                                  rois[8:16, [2, 4]].min(1).values,
+                                  rois[8:16, [1, 3]].max(1).values,
+                                  rois[8:16, [2, 4]].max(1).values], 1)
+    g = torch.randn((64, 5) + pooled, device=x.device)
+    _k8_k8b_equal(x, rois, g, pooled, scale)
+
+
+@pytest.mark.cuda
+def test_roi_pooling_op_on_the_card_matches_the_cpu(cuda_device):
+    """The registered op in a bound graph on the card (K8 forward, K8b
+    backward: one launch each) against the same graph on the CPU."""
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    x, rois, g = [t.cpu().numpy() for t in _roi_inputs(300, 7, c=64)]
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = mx.sym.ROIPooling(mx.sym.Variable("data"),
+                                mx.sym.Variable("rois"), pooled_size=(7, 7),
+                                spatial_scale=1 / 16.0)
+        ex = net.simple_bind(ctx, grad_req="write", data=x.shape,
+                             rois=rois.shape)
+        ex.arg_dict["data"][:] = x
+        ex.arg_dict["rois"][:] = rois
+        before = (rk.roi_pool_fwd_cuda.launches,
+                  rk.roi_pool_bwd_cuda.launches)
+        out = ex.forward(is_train=True)[0].asnumpy()
+        ex.backward(out_grads=[mx.nd.array(g)])
+        res.append((out, ex.grad_dict["data"].asnumpy(),
+                    (rk.roi_pool_fwd_cuda.launches - before[0],
+                     rk.roi_pool_bwd_cuda.launches - before[1])))
+    assert res[0][2] == (1, 1) and res[1][2] == (0, 0)
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    assert np.abs(res[0][1] - res[1][1]).max() <= \
+        1e-5 * np.abs(res[1][1]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre,post", [(12000, 2000), (6000, 300)])
+def test_proposal_through_k7_matches_the_plain_loop(cuda_device, pre, post):
+    """Proposal at 600x1000 (20,646 anchors, the pre/post-NMS top-N of
+    training and inference) on the card: one K7 launch, and rois and
+    scores bit for bit those of the same op with the plain loop run on
+    the card; nothing read back to the host on the way."""
+    from mxnet_tpu_torch.ops import contrib, nms_kernel
+
+    rs = np.random.RandomState(pre)
+    k, h, w = 9, 37, 62
+    logits = rs.normal(0, 1, (1, 2, k, h, w))
+    p = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    dev = cuda_device
+    cls = torch.from_numpy(p.reshape(1, 2 * k, h, w).astype(np.float32)) \
+        .to(dev)
+    d = torch.from_numpy(rs.normal(0, 0.2, (1, 4 * k, h, w))
+                         .astype(np.float32)).to(dev)
+    info = torch.tensor([[600.0, 1000.0, 1.0]], device=dev)
+    args = (cls, d, info, 16, (8.0, 16.0, 32.0), (0.5, 1.0, 2.0), pre, post,
+            0.7, 16)
+    before = nms_kernel.greedy_nms_cuda.launches
+    got = contrib.proposal(*args)
+    torch.cuda.synchronize()
+    assert nms_kernel.greedy_nms_cuda.launches == before + 1
+    want = contrib.proposal(*args, nms=nms_kernel.greedy_nms_plain)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].shape == (post, 5)
+
+
+@pytest.mark.cuda
+def test_rcnn_training_step_launches_k7_k8_and_k8b_once(cuda_device):
+    """One step of the end-to-end graph at 64x64 on the card: one K7, one
+    K8 and one K8b launch; the outputs within 1e-4 of the CPU's step from
+    the same weights (convolutions and products round otherwise)."""
+    from mxnet_tpu_torch.models import rcnn
+    from mxnet_tpu_torch.ops import nms_kernel
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    rs = np.random.RandomState(0)
+    a, r = 9 * 16, 2000
+    batch = {"data": rs.rand(1, 3, 64, 64).astype(np.float32),
+             "im_info": np.array([[64, 64, 1.0]], np.float32),
+             "label": rs.randint(-1, 2, (1, a)).astype(np.float32),
+             "bbox_target": rs.normal(0, 1, (1, 36, 4, 4)).astype(
+                 np.float32),
+             "bbox_weight": np.ones((1, 36, 4, 4), np.float32),
+             "roi_label": rs.randint(0, 4, r).astype(np.float32),
+             "roi_bbox_target": rs.normal(0, 1, (r, 16)).astype(np.float32),
+             "roi_bbox_weight": np.ones((r, 16), np.float32)}
+    labels = ("label", "bbox_target", "bbox_weight", "roi_label",
+              "roi_bbox_target", "roi_bbox_weight")
+    outs, params = [], None
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with mx.name.NameManager():
+            net = rcnn.get_symbol_train(num_classes=4)
+        mod = mx.mod.Module(net, data_names=("data", "im_info"),
+                            label_names=labels, context=ctx)
+        mod.bind(data_shapes=[(k, batch[k].shape)
+                              for k in ("data", "im_info")],
+                 label_shapes=[(k, batch[k].shape) for k in labels])
+        if params is None:
+            mx.init.seed(0)
+            mod.init_params(mx.init.Xavier())
+            params = mx.convert.module_params_to_numpy(mod)
+        else:
+            mx.convert.set_module_params(mod, *params)
+        before = (nms_kernel.greedy_nms_cuda.launches,
+                  rk.roi_pool_fwd_cuda.launches, rk.roi_pool_bwd_cuda.launches)
+        mod.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(batch[k]) for k in ("data", "im_info")],
+            label=[mx.nd.array(batch[k]) for k in labels]))
+        outs.append([o.asnumpy() for o in mod.get_outputs()])
+        after = (nms_kernel.greedy_nms_cuda.launches,
+                 rk.roi_pool_fwd_cuda.launches, rk.roi_pool_bwd_cuda.launches)
+        assert [b - a for a, b in zip(before, after)] == \
+            ([1, 1, 1] if ctx.device_type == "gpu" else [0, 0, 0])
+    for g, c in zip(*outs):
+        assert np.abs(g - c).max() <= 1e-4 * max(np.abs(c).max(), 1.0)
+
+
+def _spatial_cases():
+    """(id, build(sym) -> symbol, {input: array}) of the other five spatial
+    ops."""
+    rs = np.random.RandomState(0)
+    theta = np.tile(np.array([[1, 0, 0, 0, 1, 0]], np.float32), (2, 1)) \
+        * 0.9 + rs.normal(0, 0.2, (2, 6)).astype(np.float32)
+    v = mx.sym.Variable
+    return [
+        ("bilinear", lambda: mx.sym.BilinearSampler(v("data"), v("grid")),
+         {"data": rs.normal(0, 1, (2, 3, 17, 23)).astype(np.float32),
+          "grid": rs.uniform(-1.2, 1.2, (2, 2, 11, 13)).astype(
+              np.float32)}),
+        ("grid-affine", lambda: mx.sym.GridGenerator(
+            v("data"), transform_type="affine", target_shape=(9, 11)),
+         {"data": theta}),
+        ("grid-warp", lambda: mx.sym.GridGenerator(
+            v("data"), transform_type="warp"),
+         {"data": rs.normal(0, 2, (2, 2, 9, 11)).astype(np.float32)}),
+        ("spatial-transformer", lambda: mx.sym.SpatialTransformer(
+            v("data"), v("loc"), target_shape=(9, 11)),
+         {"data": rs.normal(0, 1, (2, 3, 12, 16)).astype(np.float32),
+          "loc": theta}),
+        ("correlation", lambda: mx.sym.Correlation(
+            v("a"), v("b"), kernel_size=3, max_displacement=4, stride1=1,
+            stride2=2, pad_size=4),
+         {"a": rs.normal(0, 1, (2, 8, 12, 16)).astype(np.float32),
+          "b": rs.normal(0, 1, (2, 8, 12, 16)).astype(np.float32)}),
+        ("crop", lambda: mx.sym.Crop(v("data"), v("like"), num_args=2,
+                                     center_crop=True),
+         {"data": rs.normal(0, 1, (2, 3, 12, 16)).astype(np.float32),
+          "like": rs.normal(0, 1, (2, 3, 7, 9)).astype(np.float32)}),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _spatial_cases(), ids=lambda c: c[0])
+def test_spatial_ops_on_the_card_match_the_cpu(cuda_device, case):
+    """BilinearSampler, GridGenerator, SpatialTransformer, Correlation and
+    Crop on the card against the CPU, forward and gradient, within 1e-5
+    of each output's largest magnitude."""
+    _name, build, values = case
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        ex = build().simple_bind(ctx, grad_req="write",
+                                 **{k: v.shape for k, v in values.items()})
+        for k, val in values.items():
+            ex.arg_dict[k][:] = val
+        out = ex.forward(is_train=True)[0].asnumpy()
+        head = np.random.RandomState(1).normal(0, 1, out.shape).astype(
+            np.float32)
+        ex.backward(out_grads=[mx.nd.array(head)])
+        res.append([out] + [ex.grad_dict[k].asnumpy() for k in values])
+    for g, c in zip(*res):
+        assert np.abs(g - c).max() <= 1e-5 * max(np.abs(c).max(), 1.0)
+
+
+@pytest.mark.cuda
+def test_kernels_line_names_k8_and_k8b(cuda_device):
+    """``chip_smoke.py``'s rows of K8 and K8b (here on a small map) carry
+    every key of the contract's kernels line, the source and the JAX
+    function they replace."""
+    import chip_smoke
+
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    x, rois, g = _roi_inputs(50, 9, c=16)
+    rows = chip_smoke.roi_kernel_rows(rk, x, rois, g, (3, 2), "card",
+                                      "a small map")
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in rows] == ["roi_pooling_fwd",
+                                         "roi_pooling_bwd"]
+    for row, n in zip(rows, (3, 2)):
+        assert keys <= set(row) and row["launches"] == n
+        assert row["route"] == "cuda" and row["library_ms"] is None
+        assert row["source"] == "mxnet_tpu_torch/csrc/roi_pooling.cu"
+        assert row["replaces"] == "mxnet_tpu/ops/spatial.py:28"
+        assert row["ms"] > 0 and row["bound_ms"] > 0
+        assert row["bound_by"] in ("bytes", "operations")
+    json.dumps(rows)

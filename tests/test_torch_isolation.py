@@ -48,7 +48,10 @@ def test_import_loads_no_jax_and_no_mxnet_tpu():
             "mxnet_tpu_torch.models.ssd_detect, mxnet_tpu_torch.models.vgg, "
             "mxnet_tpu_torch.models.googlenet, "
             "mxnet_tpu_torch.models.inception_bn, "
-            "mxnet_tpu_torch.models.alexnet\n"
+            "mxnet_tpu_torch.models.alexnet, mxnet_tpu_torch.models.rcnn, "
+            "mxnet_tpu_torch.models.inception_resnet_v2, "
+            "mxnet_tpu_torch.ops.spatial, "
+            "mxnet_tpu_torch.ops.roi_pool_kernel\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
             "print(bad)\nsys.exit(1 if bad else 0)" % (_FORBIDDEN,))
     res = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -246,3 +249,31 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(
     ts = [torch.zeros(s, dtype=dtype) for s in shapes]
     with pytest.raises(mx.MXNetError, match=match):
         tatt._check_cuda_inputs(*ts)
+
+
+def test_rcnn_entry_points_default_to_the_card(monkeypatch):
+    """Faster R-CNN's ``Module`` over each of its three graphs and the
+    Inception-ResNet-v2 ``Module`` default to the card and raise without
+    one; K8's and K8b's wrappers raise on CPU tensors, and the routed ROI
+    pooling takes the plain versions there without counting a launch."""
+    from mxnet_tpu_torch.models import rcnn
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for net in (rcnn.get_symbol_rpn(), rcnn.get_symbol_train(),
+                rcnn.get_symbol_test(),
+                mx.models.get_symbol("inception-resnet-v2", num_classes=4)):
+        with pytest.raises(mx.MXNetError, match="CUDA"):
+            mx.mod.Module(net)
+    x = torch.ones((1, 2, 4, 4))
+    rois = torch.tensor([[0.0, 0, 0, 48, 48]])
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        rk.roi_pool_fwd_cuda(x, rois, (2, 2), 1 / 16.0)
+    out, count, _ = rk.roi_pool_fwd_plain(x, rois, (2, 2), 1 / 16.0)
+    with pytest.raises(mx.MXNetError, match="CUDA"):
+        rk.roi_pool_bwd_cuda(x, torch.zeros(9, dtype=torch.int32), out,
+                             count, torch.ones_like(out), (2, 2))
+    before = (rk.roi_pool_fwd_cuda.launches, rk.roi_pool_bwd_cuda.launches)
+    assert torch.equal(rk.roi_pool(x, rois, (2, 2), 1 / 16.0), out)
+    assert (rk.roi_pool_fwd_cuda.launches,
+            rk.roi_pool_bwd_cuda.launches) == before

@@ -1,6 +1,8 @@
 """The classic image classifiers of the port's model zoo against the JAX
 package: ``alexnet`` (with ``LRN``), ``vgg`` (16 layers, with and
-without ``batch_norm``), ``googlenet`` and ``inception-bn``, each
+without ``batch_norm``), ``googlenet``, ``inception-bn`` and
+``inception-resnet-v2`` (its repeats trimmed to 1/1/1, full widths, at
+75x75, the smallest image its stem and reductions take), each
 registered under the JAX name, with the JAX package's node names and
 parameter shapes, and each fitted for two SGD steps from the JAX
 package's Xavier weights.
@@ -39,8 +41,10 @@ CASES = [
     ("vgg", 32, {"batch_norm": True}),
     ("googlenet", 256, {}),
     ("inception-bn", 96, {}),
+    ("inception-resnet-v2", 75, {"num_35": 1, "num_17": 1, "num_8": 1}),
 ]
-IDS = ["alexnet", "vgg16", "vgg16-bn", "googlenet", "inception-bn"]
+IDS = ["alexnet", "vgg16", "vgg16-bn", "googlenet", "inception-bn",
+       "inception-resnet-v2"]
 BATCH, STEPS, CLASSES = 2, 2, 10
 
 
