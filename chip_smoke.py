@@ -319,10 +319,11 @@
    ``Module.forward(is_train=False)``, two passes: forward ms, one K7 and
    one K8 launch a pass, well-formed outputs.  19d: K7 against the plain
    loop on Proposal's own inputs of 19b and 19c (keep masks equal),
-   timed; K8's maxima and counts bit for bit and K8b within 1e-5
-   of the largest |dx| (and bit for bit across two launches) on 19b's
-   own conv5_3 map, ROIs and pool5 gradient, timed beside the plain
-   versions and the bound; K8 on 19c's 300 ROIs; one RPN step on the card
+   timed; K8's maxima and channels-last map bit for bit and K8b within
+   1e-5 of the largest |dx| (and bit for bit across two launches) on
+   19b's own conv5_3 map, ROIs and pool5 gradient, timed beside the plain
+   versions and the bound, with K8b's band height, channel tile and the
+   bytes the two kernels move; K8 on 19c's 300 ROIs; one RPN step on the card
    against the CPU within 3x the f32 floor of each parameter (inputs
    perturbed by 1e-6, and the CPU step summed in another order, on one
    thread, as one more witness of the floor).
@@ -1928,43 +1929,69 @@ def sync_free_phase(mx, bnk, seed, steps, classic):
                 launches=launches)
 
 
+PROFILE_ROUNDS = 3
+
+
 def eager_and_replayed_bn_runs(mx, mod, batch):
-    """One eager and one replayed step of the sync-free ``mod`` on
-    ``batch`` (copied to the card first), each under torch.profiler:
+    """Eager and replayed steps of the sync-free ``mod`` on ``batch``
+    (copied to the card first), in turns, each under torch.profiler:
     ``{"eager": (K1/K2 kernel executions, replays), "replayed": (...,
-    ...), "profile": the replayed step's profile}``.  Raises unless the
-    replay ran as many K1/K2 kernels as the eager step, and one replay."""
+    ...), "rounds": [(eager count, replayed count, eager device events,
+    replayed device events), ...], "profile": the last replayed step's
+    profile}``.  The profiler can lose a kernel's record but never adds
+    one (runs on the card have counted 107 or 108 of a step's 110 K1/K2
+    kernels, eager or replayed, while the next step counted 110), and a
+    replay runs one fixed graph, so a kernel missing from the graph is
+    missing from every replayed round: each count is the largest over
+    the rounds, and the rounds stop once these agree (at most
+    ``PROFILE_ROUNDS``).  Raises unless the replay ran as many K1/K2
+    kernels as the eager step, and every replayed step one replay."""
     from torch.profiler import ProfilerActivity, profile
 
     dev_batch = mx.io.DataBatch(
         data=[mx.nd.NDArray(batch.data[0]._t.cuda())],
         label=[mx.nd.NDArray(batch.label[0]._t.cuda())])
-    runs = {}
-    for name, fused in (("eager", "0"), ("replayed", "1")):
-        with environment({"MXNET_FUSE_TRAIN_STEP": fused}):
-            before = mod._exec.graph_replays
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _profile_pad(dev_batch.data[0]._t.device)
-                mod.forward_backward(dev_batch)
-                mod.update()
+    rounds, replays = [], {"eager": [], "replayed": []}
+    for _ in range(PROFILE_ROUNDS):
+        got = {}
+        for name, fused in (("eager", "0"), ("replayed", "1")):
+            with environment({"MXNET_FUSE_TRAIN_STEP": fused}):
+                before = mod._exec.graph_replays
                 torch.cuda.synchronize()
-            runs[name] = (_bn_kernel_runs(prof),
-                          mod._exec.graph_replays - before)
-    runs["profile"] = prof
-    if runs["replayed"][1] != 1 or runs["replayed"][0] != runs["eager"][0] \
-            or runs["eager"][0] == 0:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _profile_pad(dev_batch.data[0]._t.device)
+                    mod.forward_backward(dev_batch)
+                    mod.update()
+                    torch.cuda.synchronize()
+                events = sum(e.count for e in prof.key_averages()
+                             if e.device_type.name == "CUDA")
+                got[name] = (_bn_kernel_runs(prof), events)
+                replays[name].append(mod._exec.graph_replays - before)
+        rounds.append((got["eager"][0], got["replayed"][0],
+                       got["eager"][1], got["replayed"][1]))
+        eager = max(r[0] for r in rounds)
+        replayed = max(r[1] for r in rounds)
+        if eager == replayed:
+            break
+    runs = {"eager": (eager, max(replays["eager"])),
+            "replayed": (replayed, max(replays["replayed"])),
+            "rounds": rounds, "profile": prof}
+    print("profiled rounds (eager K1/K2, replayed K1/K2, eager device "
+          "events, replayed device events): %s; replays a step %s"
+          % (rounds, replays), flush=True)
+    if set(replays["replayed"]) != {1} or replayed != eager or eager == 0:
         raise RuntimeError("the replayed step ran %s K1/K2 kernels, the "
-                           "eager step %s" % (runs["replayed"],
-                                              runs["eager"]))
+                           "eager step %s (rounds %s, replays %s)"
+                           % (replayed, eager, rounds, replays))
     return runs
 
 
 def sync_free_profiles(mx, bnk, mod, x, y):
-    """After the main path: (1) one eager and one replayed step on the
-    same module, each under torch.profiler: the replay must run as many
-    K1/K2 kernels as the eager step (51 calls: 49 resident, one kernel
-    each, and 2 chunked, three each, a direction); (2) one more epoch of
+    """After the main path: (1) eager and replayed steps on the same
+    module in turns (:func:`eager_and_replayed_bn_runs`), each under
+    torch.profiler: the replay must run as many K1/K2 kernels as the
+    eager step (51 calls: 49 resident, one kernel each, and 2 chunked,
+    three each, a direction); (2) one more epoch of
     the main path's ``fit`` (the same switches, prefetch, device metric
     and Speedometer; the graph is captured, so every step replays),
     profiled from an idle card: the device's idle share between its
@@ -5983,16 +6010,46 @@ def proposal_nms_inputs(mx, contrib, nms, mod, batch, pre, post):
     return seen
 
 
-def roi_bytes(x, rois, bwd, design=False):
+def roi_bytes(x, rois, bwd, design=None):
     """Bytes ROI pooling's forward (``bwd`` False) or backward must move
     on these inputs, each read or written once: the forward reads the map
     and the ROIs and writes the maxima; the backward reads the map, the
-    ROIs and the maxima's gradient and writes the map's.  With ``design``,
-    what K8 and K8b move beside that: K8 writes a count an output, K8b
-    reads the maxima and the counts."""
+    ROIs and the maxima's gradient and writes the map's.  With ``design``
+    (for the backward :func:`roi_g_reads`' count; any value for the
+    forward), what K8 and K8b move instead: K8 also writes and reads the
+    channels-last map; K8b reads that map in place of the other (the same
+    bytes) and the gradient's bins ``design`` times in all."""
     out = rois.shape[0] * x.shape[1] * ROI_POOLED[0] * ROI_POOLED[1] * 4
     need = x.numel() * 4 * (2 if bwd else 1) + rois.numel() * 4 + out
-    return need + (out * (2 if bwd else 1) if design else 0)
+    if design is None:
+        return need
+    if not bwd:
+        return need + 2 * x.numel() * 4
+    return need - out + design * x.shape[1] * 4
+
+
+def roi_g_reads(rk, x, rois, plan=None):
+    """The (ROI, bin) gradient vectors K8b reads on these inputs with
+    ``plan`` (:func:`roi_bwd_plan`'s when None): a tile's staging reads
+    each bin row and column of a listed ROI that meets the tile, so a bin
+    is read once for each tile it meets."""
+    B, C, H, W = x.shape
+    p = rk.roi_bwd_plan(H, W) if plan is None else plan
+    _b, hs, he, ws, we = rk.roi_bounds(rois, B, H, W, ROI_POOLED, ROI_SCALE)
+    lo = torch.arange(0, H, p["band"], device=hs.device)
+    hi = (lo + p["band"]).clamp(max=H)
+    wlo = torch.arange(0, W, p["width"], device=hs.device)
+    whi = (wlo + p["width"]).clamp(max=W)
+    # (R, bands, ph) and (R, column tiles, pw): the bins meeting a tile
+    rows = (he[:, None, :] > lo[None, :, None]) \
+        & (hs[:, None, :] < hi[None, :, None])
+    cols = (we[:, None, :] > wlo[None, :, None]) \
+        & (ws[:, None, :] < whi[None, :, None])
+    meets_r = (hs[:, None, 0] < hi) & (he[:, None, -1] > lo)
+    meets_c = (ws[:, None, 0] < whi) & (we[:, None, -1] > wlo)
+    nr = rows.sum(-1) * meets_r  # (R, bands)
+    nc = cols.sum(-1) * meets_c  # (R, column tiles)
+    return int((nr[:, :, None] * nc[:, None, :]).sum())
 
 
 def roi_bound_ms(rk, x, rois, bwd):
@@ -6016,27 +6073,28 @@ def roi_bound_ms(rk, x, rois, bwd):
 def roi_kernel_rows(rk, x, rois, g, launches, smi, label):
     """K8 and K8b on ``x`` (B, C, H, W), ``rois`` and the output gradient
     ``g`` on the card against their plain versions run on the card:
-    K8's maxima and counts bit for bit, K8b within 1e-5 of the largest
-    |dx| of the plain version and bit for bit across two launches; timed
-    (CUDA events, 10 launches; the plain versions once) beside the bound
-    (:func:`roi_bound_ms`).  Returns the kernels line's two rows, with
-    ``launches`` (K8's, K8b's) from the main path; no library call (core
-    PyTorch has no ROI pooling, and ``torchvision`` is not on the card
-    machine)."""
+    K8's maxima and channels-last map bit for bit, K8b within 1e-5 of the
+    largest |dx| of the plain version and bit for bit across two
+    launches; timed (CUDA events, 10 launches; the plain versions once)
+    beside the bound (:func:`roi_bound_ms`) and the bytes the kernels
+    move (:func:`roi_bytes` with ``design``).  Returns the kernels line's
+    two rows, with ``launches`` (K8's, K8b's) from the main path; no
+    library call (core PyTorch has no ROI pooling, and ``torchvision`` is
+    not on the card machine)."""
     with torch.no_grad():
-        out, count, bnd = rk.roi_pool_fwd_cuda(x, rois, ROI_POOLED,
-                                               ROI_SCALE)
-        pout, pcount, pbnd = rk.roi_pool_fwd_plain(x, rois, ROI_POOLED,
-                                                   ROI_SCALE)
-        dx = rk.roi_pool_bwd_cuda(x, bnd, out, count, g, ROI_POOLED)
-        again = rk.roi_pool_bwd_cuda(x, bnd, out, count, g, ROI_POOLED)
-        pdx = rk.roi_pool_bwd_plain(x, pbnd, pout, pcount, g, ROI_POOLED)
+        out, bnd, xt = rk.roi_pool_fwd_cuda(x, rois, ROI_POOLED, ROI_SCALE)
+        pout, pbnd, pxt = rk.roi_pool_fwd_plain(x, rois, ROI_POOLED,
+                                                ROI_SCALE)
+        dx = rk.roi_pool_bwd_cuda(xt, bnd, g, ROI_POOLED)
+        again = rk.roi_pool_bwd_cuda(xt, bnd, g, ROI_POOLED)
+        pdx = rk.roi_pool_bwd_plain(pxt, pbnd, g, ROI_POOLED)
+        count = rk.roi_bin_stats(pxt, pbnd, ROI_POOLED)[1]
         torch.cuda.synchronize()
-    if not (torch.equal(out, pout) and torch.equal(count, pcount)):
+    if not (torch.equal(out, pout) and torch.equal(xt, pxt)):
         raise RuntimeError("K8 differs from its plain version on %s: %d "
-                           "maxima, %d counts" % (
+                           "maxima, %d map values" % (
                                label, int((out != pout).sum()),
-                               int((count != pcount).sum())))
+                               int((xt != pxt).sum())))
     fwd_err = float((out - pout).abs().max())
     err = float((dx - pdx).abs().max())
     scale = float(pdx.abs().max())
@@ -6049,11 +6107,11 @@ def roi_kernel_rows(rk, x, rois, g, launches, smi, label):
         fwd_ms = _time_ms(lambda: rk.roi_pool_fwd_cuda(
             x, rois, ROI_POOLED, ROI_SCALE), 10)
         bwd_ms = _time_ms(lambda: rk.roi_pool_bwd_cuda(
-            x, bnd, out, count, g, ROI_POOLED), 10)
+            xt, bnd, g, ROI_POOLED), 10)
         pf_ms = _time_ms(lambda: rk.roi_pool_fwd_plain(
             x, rois, ROI_POOLED, ROI_SCALE), 1, warmup=0)
         pb_ms = _time_ms(lambda: rk.roi_pool_bwd_plain(
-            x, pbnd, pout, pcount, g, ROI_POOLED), 1, warmup=0)
+            pxt, pbnd, g, ROI_POOLED), 1, warmup=0)
     rows = []
     for name, bwd, ms, plain_ms, e, n in (
             ("roi_pooling_fwd", False, fwd_ms, pf_ms, fwd_err, launches[0]),
@@ -6064,22 +6122,29 @@ def roi_kernel_rows(rk, x, rois, g, launches, smi, label):
                          replaces="mxnet_tpu/ops/spatial.py:28",
                          launches=n, max_abs_err=e, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, bound_by=by, library_ms=None))
-    design = [roi_bytes(x, rois, bwd, design=True) / PEAK_BYTES * 1e3
-              for bwd in (False, True)]
+    plan = rk.roi_bwd_plan(x.shape[2], x.shape[3])
+    reads = roi_g_reads(rk, x, rois, plan)
+    design = [roi_bytes(x, rois, False, design=True) / PEAK_BYTES * 1e3,
+              roi_bytes(x, rois, True, design=reads) / PEAK_BYTES * 1e3]
     print("K8/K8b on %s (%s): map %s, %d ROIs, 7x7: K8 equals its plain "
           "version bit for bit (%d ties, %d empty or non-finite bins), "
           "K8b within %.3g of it (largest |dx| %.3g), bit for bit across "
           "two launches; K8 %.4f ms (plain %.2f, bound %.4f, %s; %.1fx the "
           "bound), K8b %.4f ms (plain %.2f, bound %.4f, %s; %.1fx the "
-          "bound); the bytes this design moves, over the memory rate: K8 "
-          "%.4f ms (with its counts), K8b %.4f ms (with out and count "
-          "re-read); no library call (core PyTorch has no ROI pooling)"
+          "bound); K8b tiles of %d rows x %d columns x %d channels, %d "
+          "threads, steps of up to %d ROIs and %d bins, %.2f reads of each "
+          "bin's gradient; the bytes the kernels move, over the memory "
+          "rate: K8 %.4f ms (with the channels-last map written and read), "
+          "K8b %.4f ms (the gradient once a tile its bin meets); no library "
+          "call (core PyTorch has no ROI pooling)"
           % (label, smi, tuple(x.shape), rois.shape[0],
              int((count > 1).sum()), int((count == 0).sum()), err, scale,
              fwd_ms, pf_ms, rows[0]["bound_ms"], rows[0]["bound_by"],
              fwd_ms / rows[0]["bound_ms"], bwd_ms, pb_ms,
              rows[1]["bound_ms"], rows[1]["bound_by"],
-             bwd_ms / rows[1]["bound_ms"], design[0], design[1]),
+             bwd_ms / rows[1]["bound_ms"], plan["band"], plan["width"],
+             plan["channels"], plan["threads"], plan["group"], plan["cap"],
+             reads / g[:, 0].numel(), design[0], design[1]),
           flush=True)
     return rows
 
@@ -6092,11 +6157,11 @@ def e2e_roi_tensors(rk, mod, batch, mx):
     real_fwd, real_bwd = rk.ROIPoolFn.forward, rk.ROIPoolFn.backward
 
     def forward(ctx, data, rois, *rest):
-        seen.update(rois=rois)
+        seen.update(x=data, rois=rois)
         return real_fwd(ctx, data, rois, *rest)
 
     def backward(ctx, g):
-        seen.update(x=ctx.saved_tensors[0], g=g.contiguous())
+        seen.update(g=g.contiguous())
         return real_bwd(ctx, g)
 
     rk.ROIPoolFn.forward = staticmethod(forward)
@@ -6203,10 +6268,10 @@ def rcnn_checks_phase(mx, bnk, rcnn, contrib, nms, rk, mod, batches, tmod,
     x3, r3 = rcnn_internals(mx, tmod, ["relu5_3_output", "rois_output"],
                             tbatch)
     with torch.no_grad():
-        out, count, _ = rk.roi_pool_fwd_cuda(x3, r3, ROI_POOLED, ROI_SCALE)
-        pout, pcount, _ = rk.roi_pool_fwd_plain(x3, r3, ROI_POOLED,
-                                                ROI_SCALE)
-    if not (torch.equal(out, pout) and torch.equal(count, pcount)):
+        out, _bnd, _xt = rk.roi_pool_fwd_cuda(x3, r3, ROI_POOLED, ROI_SCALE)
+        pout, _pbnd, _pxt = rk.roi_pool_fwd_plain(x3, r3, ROI_POOLED,
+                                                  ROI_SCALE)
+    if not torch.equal(out, pout):
         raise RuntimeError("K8 differs from its plain version on 19c")
     k8_test = _time_ms(lambda: rk.roi_pool_fwd_cuda(
         x3, r3, ROI_POOLED, ROI_SCALE), 10)

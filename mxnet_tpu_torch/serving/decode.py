@@ -48,8 +48,10 @@ is released, the held sessions migrate).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import os
+import queue
 import threading
 import time
 from collections import deque
@@ -126,27 +128,103 @@ def sample_tokens(logits, temps, seeds, positions, vocab_idx):
     return torch.where(temps > 0.0, drawn, greedy)
 
 
-#: CUDA streams of closed engines, by device.  PyTorch caches freed device
-#: blocks per stream, and cuBLAS a workspace per stream, for the life of
-#: the process: an engine that replaces a closed one on the same card
-#: takes the closed one's stream, so it reuses both instead of allocating
-#: beside them.  Process-wide, as the allocator is.
-_idle_streams = {}
+#: Lanes of closed engines, by device.  A lane is a CUDA stream and the one
+#: thread that runs an engine's work on it: its warm-up and its serving
+#: loop.  PyTorch caches freed device blocks per stream, and a cuBLAS
+#: workspace (32 MiB on Hopper) per (cuBLAS handle, stream) pair, for the
+#: life of the process; a handle belongs to a thread.  An engine that
+#: replaces a closed one on the same card takes the closed one's lane, so
+#: it reuses both instead of allocating beside them.  Process-wide, as the
+#: allocator is.
+_idle_lanes = {}
 _idle_lock = threading.Lock()
 
 
-def _take_stream(device):
+class _Job:
+    """A function run on a lane; ``join`` and ``is_alive`` as a
+    thread's."""
+
+    def __init__(self, fn, reraise):
+        self._fn = fn
+        self.reraise = reraise
+        self.result = self.error = None
+        self._done = threading.Event()
+
+    def run(self):
+        try:
+            self.result = self._fn()
+        except BaseException as e:  # noqa: broad-except — the lane's
+            # thread must outlive any job; the caller or the log gets it
+            self.error = e
+        finally:
+            self._fn = None  # an idle lane keeps no closed engine alive
+            self._done.set()
+
+    def join(self, timeout=None):
+        self._done.wait(timeout)
+
+    def is_alive(self):
+        return not self._done.is_set()
+
+
+class _Lane:
+    """A stream (None on the CPU) and a daemon thread that runs the jobs
+    given to it one after another, for the life of the process."""
+
+    def __init__(self, device, index):
+        self.stream = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+        self._jobs = queue.SimpleQueue()
+        self._thread = threading.Thread(
+            target=self._run, name="decode-lane-%s-%d" % (device, index),
+            daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            job = self._jobs.get()
+            job.run()
+            if job.error is not None and not job.reraise:
+                _log.error("decode: a job on %s raised",
+                           self._thread.name, exc_info=job.error)
+            job = None
+
+    def submit(self, fn, reraise=False):
+        """Queue ``fn`` behind the lane's earlier jobs; returns its
+        :class:`_Job` (whose exception the lane logs unless ``reraise``:
+        then the caller takes it)."""
+        job = _Job(fn, reraise)
+        self._jobs.put(job)
+        return job
+
+    def call(self, fn):
+        """``fn()`` run on the lane's thread (at once when called from
+        it): its result, or its exception raised here."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        job = self.submit(fn, reraise=True)
+        job.join()
+        if job.error is not None:
+            raise job.error
+        return job.result
+
+
+_lane_ids = itertools.count()
+
+
+def _take_lane(device):
     with _idle_lock:
-        idle = _idle_streams.get(device)
+        idle = _idle_lanes.get(device)
         if idle:
             return idle.pop()
-    return torch.cuda.Stream(device)
+    return _Lane(device, next(_lane_ids))
 
 
-def _give_back_stream(device, stream):
-    stream.synchronize()
+def _give_back_lane(device, lane):
+    if lane.stream is not None:
+        lane.stream.synchronize()
     with _idle_lock:
-        _idle_streams.setdefault(device, []).append(stream)
+        _idle_lanes.setdefault(device, []).append(lane)
 
 
 def resolve_device(device):
@@ -346,8 +424,8 @@ class DecodeEngine:
         self.max_queue = int(max_queue)
         self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
-        self._stream = _take_stream(self._device) if self._cuda \
-            else None
+        self._lane = _take_lane(self._device)
+        self._stream = self._lane.stream
         with self._on_stream():
             self._params = _tlm.params_to(params, self._device)
         self._on_step_error = on_step_error
@@ -360,9 +438,10 @@ class DecodeEngine:
         self._running = False
         self._draining = False
         self._closed = False
+        #: the serving loop's job on the lane (``join``/``is_alive``)
         self._thread = None
-        #: the last worker started (``stop`` clears ``_thread`` even when
-        #: a wedged worker outlives its joins)
+        #: the last loop started (``stop`` clears ``_thread`` even when
+        #: a wedged loop outlives its joins)
         self._worker = None
         self._beat = time.monotonic()
         #: total decode steps (tests pin continuous admission on it)
@@ -441,11 +520,12 @@ class DecodeEngine:
     def _build(self):
         """Set the step and prefill functions and return a warmed fresh
         state: every prefill bucket and the step run once before
-        traffic, which warms cuBLAS handles and the caching allocator."""
+        traffic, on the lane's thread, which warms the cuBLAS handle and
+        workspace the loop will use and the caching allocator."""
         self._step_fn = self._step_paged if self._kv is not None \
             else self._step_dense
         self._prefill_fn = self._prefill
-        state = self._warm(self._fresh_state())
+        state = self._lane.call(lambda: self._warm(self._fresh_state()))
         _telemetry.event("serving.decode.warm", model=self.name,
                          replica=self.replica, slots=self.slots,
                          buckets=len(self.prefill_buckets))
@@ -600,9 +680,10 @@ class DecodeEngine:
     def rewarm(self):
         """Rebuild the functions (undoing any wrapper) and re-warm on a
         fresh state — the pool's quarantine re-warm.  Refuses a running
-        or CLOSED engine."""
+        or CLOSED engine, and one whose loop outlived its stop."""
         with self._cond:
-            if self._running:
+            worker = self._worker
+            if self._running or (worker is not None and worker.is_alive()):
                 raise MXNetError("rewarm() needs a stopped engine")
             if self._closed:
                 raise MXNetError("decode engine %r is closed"
@@ -787,11 +868,8 @@ class DecodeEngine:
             self._draining = False
             self._running = True
             self._beat = time.monotonic()
-            self._thread = self._worker = threading.Thread(
-                target=self._serve_loop,
-                name="decode-%s-%s" % (self.name, self.replica),
-                daemon=True)
-            self._thread.start()
+            self._thread = self._worker = self._lane.submit(
+                self._serve_loop)
         return self
 
     def stop(self, drain=True, deadline=None, hand_off=None):
@@ -871,16 +949,18 @@ class DecodeEngine:
         return clean
 
     def _release_state(self):
-        """Drop the device state of a closed engine and give its stream
-        back for the next engine on this card (with the blocks the
-        allocator cached for it).  Called once nothing of this engine can
-        use the stream again: by the worker as its loop ends, or by
-        ``close`` when no worker is alive.  Idempotent."""
+        """Drop the device state of a closed engine and give its lane back
+        for the next engine on this card (with the blocks the allocator
+        cached for its stream and the cuBLAS workspace of its thread).
+        Called once nothing of this engine can use the lane again: by the
+        loop as it ends, or by ``close`` when no loop is alive.
+        Idempotent."""
         with self._cond:
             self._boot_state = self._live = None
-            stream, self._stream = self._stream, None
-        if stream is not None:
-            _give_back_stream(self._device, stream)
+            self._stream = None
+            lane, self._lane = self._lane, None
+        if lane is not None:
+            _give_back_lane(self._device, lane)
 
     def _serve_loop(self):
         with self._cond:

@@ -26,14 +26,15 @@ def _script(name):
 def _edits(name):
     mod = _script(name)
     src = {"chip_bn_costs": "batch_norm.cu", "chip_lstm_costs": "lstm.cu",
-           "chip_k3b_costs": "flash_attention.cu"}[name]
+           "chip_k3b_costs": "flash_attention.cu",
+           "chip_k8_costs": "roi_pooling.cu"}[name]
     edits = [(v, e) for v, es in mod.VARIANTS.items() for e in es]
     edits += [("every variant", e) for e in getattr(mod, "SMID", [])]
     return src, edits
 
 
 @pytest.mark.parametrize("name", ["chip_bn_costs", "chip_lstm_costs",
-                                  "chip_k3b_costs"])
+                                  "chip_k3b_costs", "chip_k8_costs"])
 def test_variant_edits_match_the_kernel_source_once(name):
     """Each variant is the committed source with edits that must each
     match exactly once, or the script stops before it times anything."""
@@ -564,20 +565,73 @@ def test_rcnn_phase_helpers_run_on_the_cpu():
     pixels = sum(max(0, int(bnd[2][r, i] - bnd[1][r, i]))
                  * max(0, int(bnd[4][r, j] - bnd[3][r, j]))
                  for r in range(3) for i in range(7) for j in range(7)) * 3
+    # K8b's reads of the gradient: each bin once for each tile (band of
+    # rows by run of columns) it meets, when its ROI meets the tile
+    plan = dict(rk.roi_bwd_plan(9, 13), band=2, width=5)
+    reads = 0
+    for lo in range(0, 9, 2):
+        hi = min(lo + 2, 9)
+        for wlo in range(0, 13, 5):
+            whi = min(wlo + 5, 13)
+            for r in range(3):
+                if not (bnd[1][r, 0] < hi and bnd[2][r, -1] > lo
+                        and bnd[3][r, 0] < whi and bnd[4][r, -1] > wlo):
+                    continue
+                reads += sum(int(bnd[1][r, i] < hi and bnd[2][r, i] > lo
+                                 and bnd[3][r, j] < whi
+                                 and bnd[4][r, j] > wlo)
+                             for i in range(7) for j in range(7))
+    assert 0 < smoke.roi_g_reads(rk, x, rois, plan) == reads
     for bwd, ops in ((False, 1), (True, 2)):
         ms, by = smoke.roi_bound_ms(rk, x, rois, bwd)
         # the map (and its gradient), the ROIs, the maxima (or their
-        # gradient); K8 also writes the counts, K8b also reads maxima
-        # and counts
+        # gradient); K8 also writes and reads the channels-last map, K8b
+        # reads the gradient once a tile its bin meets
         nbytes = x.numel() * 4 * (2 if bwd else 1) + 3 * 20 + 3 * 3 * 49 * 4
         assert smoke.roi_bytes(x, rois, bwd) == nbytes
-        assert smoke.roi_bytes(x, rois, bwd, design=True) == \
-            nbytes + 3 * 3 * 49 * 4 * (2 if bwd else 1)
+        design = nbytes - 3 * 3 * 49 * 4 + reads * 3 * 4 if bwd \
+            else nbytes + 2 * x.numel() * 4
+        assert smoke.roi_bytes(x, rois, bwd, design=reads if bwd
+                               else True) == design
         assert ms == max(nbytes / smoke.PEAK_BYTES,
                          pixels * ops / smoke.PEAK_F32_FLOPS) * 1e3
         assert by == ("bytes" if nbytes / smoke.PEAK_BYTES
                       >= pixels * ops / smoke.PEAK_F32_FLOPS
                       else "operations")
+
+
+def test_k8_costs_script_plans_and_refuses_to_run_without_a_card():
+    """``chip_k8_costs.py``'s variants are edits that each match the
+    committed ``csrc/roi_pooling.cu`` once, and its K8b variants change
+    K8b's tiling constants to other values; its ROI cover count matches a
+    count by hand; without a card it prints no result and exits
+    non-zero."""
+    import subprocess
+    import sys
+
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    costs = _script("chip_k8_costs")
+    smoke = _script("chip_smoke")
+    sources = dict(costs.variant_sources())
+    assert set(sources) == set(costs.VARIANTS) | set(costs.ABLATIONS)
+    for name, edits in costs.VARIANTS.items():
+        for old, new in edits:
+            assert old != new and new in sources[name]
+        if name.startswith("K8b "):
+            assert all(old.startswith(("constexpr int ",
+                                       "__launch_bounds__("))
+                       for old, _new in edits)
+    x = torch.zeros((1, 3, 9, 13))
+    rois = torch.tensor([[0, 0, 0, 200, 140], [0, 30, 20, 90, 100],
+                         [0, 500, 500, 600, 600]], dtype=torch.float32)
+    # 9x13 and 6x5 pixels (rows 1-6, columns 2-6); the third ROI lies
+    # past the map
+    assert costs.coverage(rk, smoke, x, rois) == (9 * 13 + 6 * 5) / (9 * 13)
+    res = subprocess.run([sys.executable, os.path.join(
+        _ROOT, "chip_k8_costs.py")], capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode != 0 and "device:" not in res.stdout
 
 
 def test_plain_refused_passes_cpu_calls_and_restores():

@@ -2190,23 +2190,24 @@ def _roi_inputs(r, seed, c=512, hw=(37, 62), image=(600, 1000), batch=1):
 
 def _k8_k8b_equal(x, rois, g, pooled=(7, 7), scale=1 / 16.0):
     """K8 and K8b (one counted launch each) against the plain versions on
-    the card: maxima and counts bit for bit, dx within 1e-5 of its
-    largest magnitude and bit for bit across two launches."""
+    the card: maxima and the channels-last map bit for bit, dx within
+    1e-5 of its largest magnitude and bit for bit across two launches.
+    Returns the tie counts the plain backward rebuilds."""
     from mxnet_tpu_torch.ops import roi_pool_kernel as rk
 
     before = (rk.roi_pool_fwd_cuda.launches, rk.roi_pool_bwd_cuda.launches)
-    out, count, bounds = rk.roi_pool_fwd_cuda(x, rois, pooled, scale)
-    dx = rk.roi_pool_bwd_cuda(x, bounds, out, count, g, pooled)
+    out, bounds, xt = rk.roi_pool_fwd_cuda(x, rois, pooled, scale)
+    dx = rk.roi_pool_bwd_cuda(xt, bounds, g, pooled)
     torch.cuda.synchronize()
     assert (rk.roi_pool_fwd_cuda.launches,
             rk.roi_pool_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
-    again = rk.roi_pool_bwd_cuda(x, bounds, out, count, g, pooled)
-    pout, pcount, pbounds = rk.roi_pool_fwd_plain(x, rois, pooled, scale)
-    pdx = rk.roi_pool_bwd_plain(x, pbounds, pout, pcount, g, pooled)
-    assert torch.equal(out, pout) and torch.equal(count, pcount)
+    again = rk.roi_pool_bwd_cuda(xt, bounds, g, pooled)
+    pout, pbounds, pxt = rk.roi_pool_fwd_plain(x, rois, pooled, scale)
+    pdx = rk.roi_pool_bwd_plain(pxt, pbounds, g, pooled)
+    assert torch.equal(out, pout) and torch.equal(xt, pxt)
     assert float((dx - pdx).abs().max()) <= 1e-5 * float(pdx.abs().max())
     assert torch.equal(dx, again)
-    return count
+    return rk.roi_bin_stats(pxt, pbounds, pooled)[1]
 
 
 @pytest.mark.cuda
@@ -2238,6 +2239,63 @@ def test_k8_and_k8b_on_small_maps_and_batches(cuda_device, pooled, scale):
                                   rois[8:16, [2, 4]].max(1).values], 1)
     g = torch.randn((64, 5) + pooled, device=x.device)
     _k8_k8b_equal(x, rois, g, pooled, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [5, 513])
+def test_k8_and_k8b_with_a_partial_channel_tile(cuda_device, c):
+    """Channel counts that are not a multiple of the 32-channel tile: the
+    last tile's idle lanes read and write nothing."""
+    _k8_k8b_equal(*_roi_inputs(400, c, c=c))
+
+
+@pytest.mark.cuda
+def test_k8b_over_many_bands_with_bins_across_band_edges(cuda_device):
+    """A 64-row map in bands of a few rows: most bins straddle a band
+    edge, so each is rebuilt in every band it meets; two images."""
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    x, rois, g = _roi_inputs(300, 11, c=64, hw=(64, 40), image=(1024, 640),
+                             batch=2)
+    plan = rk.roi_bwd_plan(64, 40)
+    assert 64 // plan["band"] >= 4 and plan["width"] == 40
+    assert rk.kernel_bwd_plan(64, 40, (7, 7))[0] == plan
+    _b, hs, he, _ws, _we = rk.roi_bounds(rois, 2, 64, 40, (7, 7), 1 / 16.0)
+    band = plan["band"]
+    assert ((hs // band) != ((he - 1) // band)).float().mean() > 0.3
+    _k8_k8b_equal(x, rois, g)
+
+
+@pytest.mark.cuda
+def test_k8b_with_one_pixel_under_all_2000_rois(cuda_device):
+    """Every one of 2000 ROIs covers map pixel (20, 30): its tile lists
+    them all, in order, in four compactions of 512 (a block of threads)."""
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    x, rois, g = _roi_inputs(2000, 13)
+    rs = np.random.RandomState(13)
+    lo = rs.uniform(0, 1, (2000, 2)) * [440, 300]
+    hi = rs.uniform(0, 1, (2000, 2)) * [480, 270] + [520, 330]
+    rois[:, 1:] = torch.from_numpy(np.concatenate([lo, hi], 1)
+                                   .astype(np.float32)).to(rois.device)
+    _b, hs, he, ws, we = rk.roi_bounds(rois, 1, 37, 62, (7, 7), 1 / 16.0)
+    assert ((hs[:, 0] <= 20) & (he[:, -1] > 20) & (ws[:, 0] <= 30)
+            & (we[:, -1] > 30)).all()
+    _k8_k8b_equal(x, rois, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled", [(1, 1), (64, 64)])
+def test_k8_and_k8b_at_the_pooled_size_limits(cuda_device, pooled):
+    """One bin a ROI, and MAX_POOL x MAX_POOL bins, most smaller than a
+    pixel, so a pixel lies in many bins and K8b splits each ROI over
+    steps by bin rows (its partial sums carried between them)."""
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    assert pooled[0] in (1, rk.MAX_POOL)
+    x, rois, _g = _roi_inputs(40, 17, c=8)
+    g = torch.randn((40, 8) + pooled, device=x.device)
+    _k8_k8b_equal(x, rois, g, pooled)
 
 
 @pytest.mark.cuda
@@ -2348,6 +2406,40 @@ def test_rcnn_training_step_launches_k7_k8_and_k8b_once(cuda_device):
             ([1, 1, 1] if ctx.device_type == "gpu" else [0, 0, 0])
     for g, c in zip(*outs):
         assert np.abs(g - c).max() <= 1e-4 * max(np.abs(c).max(), 1.0)
+
+
+@pytest.mark.cuda
+def test_captured_rcnn_fit_launches_k7_k8_and_k8b_once_a_step(cuda_device,
+                                                             monkeypatch):
+    """Three captured steps of the end-to-end graph at 64x64
+    (``MXNET_FUSE_TRAIN_STEP=1``: a warm-up with the capture, then two
+    replays): one K7, one K8 and one K8b launch a step, the replays
+    counting what the capture recorded."""
+    import chip_smoke
+
+    from mxnet_tpu_torch.models import rcnn
+    from mxnet_tpu_torch.ops import nms_kernel
+    from mxnet_tpu_torch.ops import roi_pool_kernel as rk
+
+    monkeypatch.setenv("MXNET_FUSE_TRAIN_STEP", "1")
+    batches = chip_smoke.rcnn_batches(0, 3, "train", image=(64, 64),
+                                      classes=4)
+    with mx.name.NameManager():
+        net = rcnn.get_symbol_train(num_classes=4)
+    data, labels = chip_smoke.rcnn_names("train")
+    mod = mx.mod.Module(net, data_names=data, label_names=labels,
+                        context=mx.gpu(0))
+    wrappers = (nms_kernel.greedy_nms_cuda, rk.roi_pool_fwd_cuda,
+                rk.roi_pool_bwd_cuda)
+    before = [w.launches for w in wrappers]
+    mx.init.seed(0)
+    mod.fit(chip_smoke.rcnn_iter(mx, batches, "train"), num_epoch=1,
+            eval_metric=chip_smoke.anchor_ce_metric(mx),
+            optimizer_params=dict(chip_smoke.RCNN_OPT),
+            initializer=mx.init.Xavier())
+    torch.cuda.synchronize()
+    assert mod._full_step_eligible() and mod._exec.graph_replays == 2
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [3, 3, 3]
 
 
 def _spatial_cases():

@@ -541,6 +541,40 @@ def test_replica_kill_closes_the_engine_for_good(layout):
         eng.close(drain=False)
 
 
+def test_a_closed_engine_hands_its_lane_on_and_is_freed(monkeypatch):
+    """An engine warms and serves on its lane's one thread; once closed
+    it gives the lane (stream and thread) to the next engine on its
+    device, and the idle lane keeps nothing of it alive."""
+    import gc
+    import weakref
+
+    seen = []
+    warm = DecodeEngine._warm
+
+    def traced_warm(self, state):
+        seen.append(("warm", threading.current_thread()))
+        return warm(self, state)
+
+    monkeypatch.setattr(DecodeEngine, "_warm", traced_warm)
+    eng = _engine()
+    eng.submit(PROMPT, max_new_tokens=2, on_token=lambda *a: seen.append(
+        ("token", threading.current_thread()))).result(60)
+    lane = eng._lane
+    assert {t for _what, t in seen} == {lane._thread}
+    eng.close()
+    ref = weakref.ref(eng)
+    del eng
+    gc.collect()
+    assert ref() is None
+    nxt = _engine()
+    try:
+        assert nxt._lane is lane and seen[-1] == ("warm", lane._thread)
+        assert nxt.generate(PROMPT, max_new_tokens=3, timeout=60) \
+            == _greedy_ref(CFG, PROMPT, 3)
+    finally:
+        nxt.close()
+
+
 def test_decode_fault_fails_one_step_and_the_engine_serves_on():
     from mxnet_tpu_torch import faults
 

@@ -69,6 +69,7 @@ def _py_files():
     yield os.path.join(_ROOT, "chip_lstm_costs.py")
     yield os.path.join(_ROOT, "chip_bn_costs.py")
     yield os.path.join(_ROOT, "chip_sync_free_runs.py")
+    yield os.path.join(_ROOT, "chip_k8_costs.py")
 
 
 def test_sources_import_no_jax_and_no_mxnet_tpu():
@@ -269,10 +270,10 @@ def test_rcnn_entry_points_default_to_the_card(monkeypatch):
     rois = torch.tensor([[0.0, 0, 0, 48, 48]])
     with pytest.raises(mx.MXNetError, match="CUDA"):
         rk.roi_pool_fwd_cuda(x, rois, (2, 2), 1 / 16.0)
-    out, count, _ = rk.roi_pool_fwd_plain(x, rois, (2, 2), 1 / 16.0)
+    out, _bounds, xt = rk.roi_pool_fwd_plain(x, rois, (2, 2), 1 / 16.0)
     with pytest.raises(mx.MXNetError, match="CUDA"):
-        rk.roi_pool_bwd_cuda(x, torch.zeros(9, dtype=torch.int32), out,
-                             count, torch.ones_like(out), (2, 2))
+        rk.roi_pool_bwd_cuda(xt, torch.zeros(9, dtype=torch.int32),
+                             torch.ones_like(out), (2, 2))
     before = (rk.roi_pool_fwd_cuda.launches, rk.roi_pool_bwd_cuda.launches)
     assert torch.equal(rk.roi_pool(x, rois, (2, 2), 1 / 16.0), out)
     assert (rk.roi_pool_fwd_cuda.launches,

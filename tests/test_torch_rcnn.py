@@ -1,6 +1,7 @@
 """Faster R-CNN's ops in the PyTorch port against the JAX package:
 ``ROIPooling`` (forward and data gradient, the plain version of kernels
-K8/K8b, and a CPU model of K8b's per-pixel gather), ``_contrib_Proposal``
+K8/K8b, and CPU models of K8b's row-band walk and of the per-pixel walk
+it replaced, held to each other bit for bit), ``_contrib_Proposal``
 (greedy NMS through K7's plain version on the CPU) and ``BlockGrad``.
 The graphs of ``models/rcnn.py`` are ``test_torch_rcnn_graphs.py``'s.
 
@@ -81,11 +82,18 @@ def _roi_case(name):
         B = 3
         data = rs.normal(0, 1, (B, C, H, W)).astype(np.float32)
         rois[:, 0] = [2, 1, 0, -1, 5, 2.7, -0.5, -1.5] * 3  # clamped, wrapped
+    elif name == "empty-band":
+        # every ROI within map rows 0-4: the rows below meet none
+        ys = np.sort(rs.uniform(0, 60, (24, 2)), 1)
+        rois[:, 2], rois[:, 4] = ys[:, 0], ys[:, 1]
+    elif name == "interleaved":
+        # the two images' ROIs alternate in id order
+        rois[:, 0] = np.arange(24) % 2
     return data, rois, pooled, scale
 
 
 ROI_CASES = ["ties", "empty-bins", "past-edges", "half-integer", "scale-0.3",
-             "batch-index"]
+             "batch-index", "empty-band", "interleaved"]
 
 
 def _jax_roi_pooling(data, rois, pooled, scale, g):
@@ -127,22 +135,28 @@ def test_roi_pooling_matches_jax(case):
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
     assert not got[2].any() and not want[2].any()
-    _out, count, _ = trk.roi_pool_fwd_plain(torch.from_numpy(data),
-                                            torch.from_numpy(rois), pooled,
-                                            scale)
+    # the tie counts the backward rebuilds from the channels-last map
+    out, bounds, xt = trk.roi_pool_fwd_plain(torch.from_numpy(data),
+                                             torch.from_numpy(rois), pooled,
+                                             scale)
+    m, count = trk.roi_bin_stats(xt, bounds, pooled)
+    assert torch.equal(m, out)
     if case == "ties":
         assert (count > 1).sum() > 0 and (want[1] != 0).any()
     if case == "empty-bins":
         assert (count[:12] == 0).all()
         assert (want[0][:12] == 0).all()
+    if case == "empty-band":
+        assert not want[1][:, :, 5:].any() and not got[1][:, :, 5:].any()
+        assert want[1][:, :, :5].any()
 
 
 def _k8b_model(data, rois, out, count, g, pooled, scale):
-    """K8b's gather on the CPU: each pixel walks the ROIs of its image in
-    ascending order; a ROI's share is its bins holding the pixel, in
-    ascending (i, j), each ``g / count`` where the pixel equals the bin's
-    maximum (count > 0); the pixel's total adds the ROIs' shares in
-    order."""
+    """The thread-a-pixel K8b gather on the CPU: each pixel walks the
+    ROIs of its image in ascending order; a ROI's share is its bins
+    holding the pixel, in ascending (i, j), each ``g / count`` where the
+    pixel equals the bin's maximum (count > 0); the pixel's total adds the
+    ROIs' shares in order."""
     B, C, H, W = data.shape
     b, hs, he, ws, we = trk.roi_bounds(rois, B, H, W, pooled, scale)
     hh = torch.arange(H)[:, None]
@@ -166,8 +180,8 @@ def _k8b_model(data, rois, out, count, g, pooled, scale):
 
 @pytest.mark.parametrize("case", ROI_CASES)
 def test_k8b_gather_model_matches_jax(case):
-    """The per-pixel gather K8b runs (modelled on the CPU on the plain
-    forward's maximum and count) against the JAX gradient, ``1e-5``, and
+    """The per-pixel gather (modelled on the CPU on the maxima and
+    counts rebuilt from the map) against the JAX gradient, ``1e-5``, and
     against the plain backward."""
     data, rois, pooled, scale = _roi_case(case)
     rs = np.random.RandomState(6)
@@ -175,11 +189,174 @@ def test_k8b_gather_model_matches_jax(case):
         .astype(np.float32)
     want = _jax_roi_pooling(data, rois, pooled, scale, g)[1]
     td, tr, tg = (torch.from_numpy(a) for a in (data, rois, g))
-    out, count, bounds = trk.roi_pool_fwd_plain(td, tr, pooled, scale)
-    got = _k8b_model(td, tr, out, count, tg, pooled, scale).numpy()
+    out, bounds, xt = trk.roi_pool_fwd_plain(td, tr, pooled, scale)
+    m, count = trk.roi_bin_stats(xt, bounds, pooled)
+    got = _k8b_model(td, tr, m, count, tg, pooled, scale).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    plain = trk.roi_pool_bwd_plain(td, bounds, out, count, tg, pooled)
+    plain = trk.roi_pool_bwd_plain(xt, bounds, tg, pooled)
     np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _first(seq, pred, start, stop):
+    """The first k in [start, stop) with ``pred(seq[k])``, else stop."""
+    k = start
+    while k < stop and not pred(seq[k]):
+        k += 1
+    return k
+
+
+def _bin_range(s, e, a, z, p):
+    """The bins of [a, z) holding pixel row (or column) p: [lo, hi]."""
+    lo = _first(e, lambda v: v > p, a, z)
+    hi = lo - 1
+    while hi + 1 < z and s[hi + 1] <= p:
+        hi += 1
+    return lo, hi
+
+
+def _k8b_steps(entries, group, cap):
+    """K8b's steps over a tile's list ``[(r, i0, i1, j0, j1)]``: up to
+    ``group`` whole entries whose bins fit ``cap``, or one chunk of bin
+    rows of an entry with more; items ``(entry, i0, i1, first, last)``."""
+    pos, row = 0, None
+    while pos < len(entries):
+        _r, a, z, j0, j1 = entries[pos]
+        nj = j1 - j0
+        if row is None and (z - a) * nj > cap:
+            row = a
+        if row is not None:
+            zz = min(row + max(1, cap // nj), z)
+            yield [(pos, row, zz, row == a, zz == z)]
+            pos, row = (pos + 1, None) if zz == z else (pos, zz)
+            continue
+        items, nb = [], 0
+        while pos < len(entries) and len(items) < group:
+            _r, a, z, j0, j1 = entries[pos]
+            if nb + (z - a) * (j1 - j0) > cap:
+                break
+            items.append((pos, a, z, True, True))
+            nb += (z - a) * (j1 - j0)
+            pos += 1
+        yield items
+
+
+def _k8b_tile_model(xt, bounds, g, pooled, plan):
+    """The new K8b's walk on the CPU, a channel vector at a time: per tile
+    (``plan``'s band of rows by run of columns) the ROIs of its image
+    meeting it, compacted in ascending order ``plan["threads"]`` ROIs at
+    a time, each with the bin rows and columns meeting the tile; steps of
+    them (:func:`_k8b_steps`); each bin's maximum and tie count rebuilt
+    from the map; each pixel's share from its bins in ascending (i, j)
+    (carried across the steps of a split ROI), added to its sum ROI by
+    ROI."""
+    B, H, W, C = xt.shape
+    ph, pw = pooled
+    bb, hs, he, ws, we = [t.tolist() for t in bounds]
+    TH, TW = plan["band"], plan["width"]
+    dx = torch.zeros((B, C, H, W))
+    nan = torch.full((C,), float("nan"))
+    for b in range(B):
+        for lo in range(0, H, TH):
+            hi = min(lo + TH, H)
+            for wlo in range(0, W, TW):
+                whi = min(wlo + TW, W)
+                acc = torch.zeros((hi - lo, whi - wlo, C))
+                part = torch.zeros_like(acc)
+                for r0 in range(0, len(bb), plan["threads"]):
+                    entries = []
+                    for r in range(r0, min(r0 + plan["threads"], len(bb))):
+                        if (bb[r] == b and hs[r][0] < hi and he[r][-1] > lo
+                                and ws[r][0] < whi and we[r][-1] > wlo):
+                            i0 = _first(he[r], lambda v: v > lo, 0, ph)
+                            j0 = _first(we[r], lambda v: v > wlo, 0, pw)
+                            entries.append((
+                                r, i0, _first(hs[r], lambda v: v >= hi, i0,
+                                              ph),
+                                j0, _first(ws[r], lambda v: v >= whi, j0,
+                                           pw)))
+                    for items in _k8b_steps(entries, plan["group"],
+                                            plan["cap"]):
+                        for e, i0, i1, first, last in items:
+                            r, _a, _z, j0, j1 = entries[e]
+                            stats = {}
+                            for i in range(i0, i1):
+                                for j in range(j0, j1):
+                                    win = xt[b, hs[r][i]:he[r][i],
+                                             ws[r][j]:we[r][j]]
+                                    win = win.reshape(-1, C)
+                                    m = win.amax(0) if len(win) else nan
+                                    n = (win == m).sum(0)
+                                    ok = torch.isfinite(m)
+                                    stats[i, j] = (torch.where(ok, m, nan),
+                                                   g[r, :, i, j] / n)
+                            for h in range(max(hs[r][0], lo),
+                                           min(he[r][-1], hi)):
+                                ia, ib = _bin_range(hs[r], he[r], i0, i1, h)
+                                for w in range(max(ws[r][0], wlo),
+                                               min(we[r][-1], whi)):
+                                    ja, jb = _bin_range(ws[r], we[r], j0,
+                                                        j1, w)
+                                    x = xt[b, h, w]
+                                    pt = torch.zeros(C) if first \
+                                        else part[h - lo, w - wlo]
+                                    for i in range(ia, ib + 1):
+                                        for j in range(ja, jb + 1):
+                                            m, s = stats[i, j]
+                                            pt = torch.where(x == m, pt + s,
+                                                             pt)
+                                    if last:
+                                        acc[h - lo, w - wlo] += pt
+                                    else:
+                                        part[h - lo, w - wlo] = pt
+                dx[b, :, lo:hi, wlo:whi] = acc.permute(2, 0, 1)
+    return dx
+
+
+#: K8b tilings the model walks: the plan's own; two-row bands of five
+#: columns, steps of at most three ROIs and one bin row a chunk (every
+#: ROI with more rows split, its partial sums carried); one-row bands
+#: over lists compacted eight ROIs at a time
+K8B_PLANS = {"plan": {}, "narrow": dict(band=2, width=5, group=3, cap=1),
+             "rows": dict(band=1, threads=8, group=32, cap=64)}
+
+
+@pytest.mark.parametrize("plan", sorted(K8B_PLANS))
+@pytest.mark.parametrize("case", ROI_CASES)
+def test_k8b_tile_walk_matches_pixel_walk_and_jax(case, plan):
+    """The new K8b's walk (:func:`_k8b_tile_model`) equals the
+    per-pixel walk bit for bit and the JAX gradient within ``1e-5``."""
+    data, rois, pooled, scale = _roi_case(case)
+    rs = np.random.RandomState(7)
+    g = rs.normal(0, 1, (len(rois), data.shape[1]) + pooled) \
+        .astype(np.float32)
+    want = _jax_roi_pooling(data, rois, pooled, scale, g)[1]
+    td, tr, tg = (torch.from_numpy(a) for a in (data, rois, g))
+    _out, bounds, xt = trk.roi_pool_fwd_plain(td, tr, pooled, scale)
+    B, H, W, _C = xt.shape
+    p = dict(trk.roi_bwd_plan(H, W), **K8B_PLANS[plan])
+    got = _k8b_tile_model(xt, bounds, tg, pooled, p)
+    m, count = trk.roi_bin_stats(xt, bounds, pooled)
+    old = _k8b_model(td, tr, m, count, tg, pooled, scale)
+    assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if case == "empty-band":
+        assert not got[:, :, 5:].any() and got[:, :, :5].any()
+
+
+def test_k8b_plan_fills_faster_rcnn_map():
+    """The default tiling of Faster R-CNN's 37x62 conv5 map: two-row
+    bands of the whole width (19 of them), 32 channels and 512 threads a
+    block, each thread summing at most eight pixels; wider maps in runs
+    of columns."""
+    p = trk.roi_bwd_plan(37, 62)
+    assert (p["band"], p["width"], p["channels"], p["threads"]) \
+        == (2, 62, 32, 512)
+    assert p["band"] * p["width"] <= p["threads"] // 32 * 8
+    assert trk.roi_bwd_plan(9, 13)["band"] == 9
+    wide = trk.roi_bwd_plan(40, 300)
+    assert (wide["band"], wide["width"]) == (1, 128)
+    # a step holds at least one bin row of the largest pooled size
+    assert p["cap"] >= trk.MAX_POOL and p["group"] >= 1
 
 
 def test_roi_pooling_routes_by_device_and_refuses_what_k8_does_not_take():
